@@ -1,0 +1,42 @@
+"""dqc-tpu-torch: the PyTorch/CUDA port of dqc-tpu for an NVIDIA H100.
+
+Differentiable quantum chemistry in float64. This package is the port of
+the JAX package `dqc_tpu` that stands beside it; it imports torch, numpy
+and scipy only. Ported so far: molecules, the vendored basis sets, the
+one- and two-electron integrals and restricted/unrestricted Hartree-Fock,
+with J and K of every Fock build from a hand-written CUDA kernel
+(ops/hopper_jk.py, csrc/ds_jk.cu).
+
+Calculations run on the CUDA card unless the caller passes device="cpu";
+without a card and without that argument the entry points raise.
+"""
+from __future__ import annotations
+
+from ._version import __version__  # noqa: F401
+from .api.parser import parse_moldesc            # noqa: F401
+from .basis import loadbasis                     # noqa: F401
+from .utils.datastruct import (                  # noqa: F401
+    SpinParam, CGTOBasis, AtomCGTOBasis)
+from .system.mol import Mol                      # noqa: F401
+from .scf.qccalc import HF, SCF_QCCalc           # noqa: F401
+from .scf.fixed_point import SCFOptions          # noqa: F401
+
+# names of the JAX package that later parts of the port bring
+_NOT_PORTED = {
+    "KS": "Kohn-Sham needs the grid and XC stack (next part of the port)",
+    "Sol": "periodic systems (ROADMAP A14)",
+    "get_xc": "XC functionals (next part of the port)",
+    "get_libxc": "XC functionals (next part of the port)",
+    "ValGrad": "grid densities (next part of the port)",
+    "band_energies": "k-point periodic systems (ROADMAP A15)",
+}
+for _n in ("hessian_pos", "vibration", "ir_spectrum", "raman_spectrum",
+           "edipole", "equadrupole", "eoctupole", "polarizability",
+           "optimal_geometry", "is_orb_min", "lowest_eival_orb_hessian"):
+    _NOT_PORTED[_n] = "properties need implicit differentiation (ROADMAP A9/A13)"
+
+
+def __getattr__(name):
+    if name in _NOT_PORTED:
+        raise NotImplementedError(f"not ported yet: {name} — {_NOT_PORTED[name]}")
+    raise AttributeError(f"module 'dqc_tpu_torch' has no attribute {name!r}")

@@ -1,0 +1,2 @@
+from .loader import (loadbasis, list_basis_sets,  # noqa: F401
+                     parse_gaussian94)

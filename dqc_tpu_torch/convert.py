@@ -1,0 +1,54 @@
+"""Carrying parameters and state across from the JAX package.
+
+The caller turns the JAX package's `mol.params` tree or a `theta` dict into
+numpy arrays (np.asarray on the JAX side); these functions return the
+port's tensors on the requested device. This module imports neither jax nor
+the JAX package. With it a test can put the JAX package's integrals through
+the port's engine, and compare one stage at a time.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .utils.config import DTYPE, resolve_device
+
+
+def _f64(x, device):
+    # torch.tensor copies: the result never aliases the caller's array
+    return torch.tensor(np.asarray(x, dtype=np.float64), dtype=DTYPE,
+                        device=device)
+
+
+def params_from_numpy(params_np: dict, device=None) -> dict:
+    """`params` of the port from the JAX package's params tree as numpy:
+    atompos (natm,3); per shell class alphas, coeffs, mask (ns,kmax)."""
+    device = resolve_device(device)
+    return {
+        "atompos": _f64(params_np["atompos"], device),
+        "alphas": [_f64(a, device) for a in params_np["alphas"]],
+        "coeffs": [_f64(a, device) for a in params_np["coeffs"]],
+        "mask": [_f64(a, device) for a in params_np["mask"]],
+    }
+
+
+def theta_from_numpy(theta_np: dict, device=None) -> dict:
+    """`theta` of the port from a theta dict of the JAX package as numpy.
+
+    Takes hcore, ovlp, X, keep, enuc, occ and eri_k; a J-layout `eri`
+    ((ij|kl)) is turned into the exchange layout eri_k the port's engine
+    consumes. Other keys (grid tables, kernel planes) are not carried."""
+    device = resolve_device(device)
+    out = {}
+    for key in ("hcore", "ovlp", "X", "enuc", "occ"):
+        if key in theta_np:
+            out[key] = _f64(theta_np[key], device)
+    if "keep" in theta_np:
+        out["keep"] = torch.tensor(
+            np.asarray(theta_np["keep"], dtype=bool), device=device)
+    if "eri_k" in theta_np:
+        out["eri_k"] = _f64(theta_np["eri_k"], device)
+    elif "eri" in theta_np:
+        out["eri_k"] = _f64(theta_np["eri"], device).permute(
+            0, 2, 1, 3).contiguous()
+    return out

@@ -1,0 +1,229 @@
+"""User-facing SCF front end: HF (counterpart of dqc_tpu/scf/qccalc.py).
+
+HF(mol).run() -> qc; qc.energy(), qc.aodm(), qc.dm2energy(dm).
+
+The JAX package has two routes through run(): one compiled solver for small
+systems and a host-driven ladder of f32 and f64 phases for large ones, made
+for f64 emulation and remote compiles on the TPU. The port has one loop in
+float64 with the meaning of the small-system solver:
+  f0 -> diis_solve(step_and_err) -> dm_from_fock(f_star) -> energy.
+KS, periodic systems, density fitting, the variational mode and the
+derivative entry points are not ported yet.
+"""
+from __future__ import annotations
+
+import time
+from typing import Optional
+
+import torch
+
+from ..ops.eri import eri_dense, screened_pair_classes
+from ..utils.config import config
+from ..utils.datastruct import SpinParam
+from ..utils.logger import log
+from .engine import HFEngine
+from .fixed_point import SCFOptions, diis_solve
+from .hamilton import build_core_theta
+
+# at and above this nao the JAX package starts from SAD instead of the core
+# guess (its host-driven route); the port starts from the GWH Fock there
+GUESS_NAO = 96
+
+
+def _occ_array(mol, polarized):
+    w = mol.get_orb_weights(polarized)
+    if isinstance(w, SpinParam):
+        return torch.stack([w.u, w.d], dim=0)
+    return w
+
+
+def _screened(mol):
+    """Schwarz-pruned pair lists, computed once from the molecule's initial
+    params (the pruning pattern is frozen)."""
+    if not getattr(mol, "screen", True) or mol.meta.nshell < 24:
+        return None
+    return screened_pair_classes(mol.meta, mol.params)
+
+
+def gwh_fock(theta, polarized: bool):
+    """Generalized Wolfsberg-Helmholtz initial Fock — a far better start
+    than the bare core guess for large molecules."""
+    h, s = theta["hcore"], theta["ovlp"]
+    d = torch.diagonal(h)
+    f = 0.5 * 1.75 * (d[:, None] + d[None, :]) * s
+    f = f - torch.diag(torch.diagonal(f)) + torch.diag(d)
+    return torch.stack([f, f]) if polarized else f
+
+
+class SCF_QCCalc:
+    """Shared SCF calculation; engine supplied by the HF front end."""
+
+    def __init__(self, mol, engine, *, build_theta, opts: SCFOptions):
+        self.mol = mol
+        self.engine = engine
+        self._build_theta = build_theta   # params -> theta dict
+        self.opts = opts
+        self._dm = None
+        self._energy = None
+        self._theta = None
+        self._has_run = False
+        # filled by run(): iterations, best residual, residual history,
+        # seconds per stage, Fock builds
+        self.stats = {}
+
+    def _all_params(self):
+        mol = self.mol
+        p = {"basis": mol.params, "atomzs": mol.atomzs}
+        if mol.efield is not None or mol.efield_grad is not None:
+            z3 = torch.zeros(3, dtype=mol.dtype, device=mol.device)
+            z33 = torch.zeros((3, 3), dtype=mol.dtype, device=mol.device)
+            p["efield"] = z3 if mol.efield is None else mol._t(mol.efield)
+            p["efield_grad"] = (z33 if mol.efield_grad is None
+                                else mol._t(mol.efield_grad))
+        if mol.efield_grad2 is not None:
+            p["efield_grad2"] = mol._t(mol.efield_grad2)
+        return p
+
+    # --- the functional core -------------------------------------------
+    def _start_fock(self, theta):
+        """Initial Fock: the core guess (dm0 = 0, so F = hcore) below
+        GUESS_NAO, as the JAX package does there; above it the GWH Fock
+        where the JAX package would take SAD."""
+        eng, opts = self.engine, self.opts
+        nao = self.mol.meta.nao
+        if nao < GUESS_NAO:
+            shape = (2, nao, nao) if eng.polarized else (nao, nao)
+            dm0 = torch.zeros(shape, dtype=self.mol.dtype,
+                              device=self.mol.device)
+            return eng.fock(dm0, theta)
+        if opts.guess == "sad":
+            # "sad" is the default of SCFOptions: it runs atomic KS-LDA
+            # calculations, which need the grid and XC stack
+            log("guess='sad' needs the atomic LDA of the grid and XC stack; "
+                "taking the GWH Fock")
+        return gwh_fock(theta, eng.polarized)
+
+    def _solver(self, theta):
+        eng, opts = self.engine, self.opts
+        if opts.method != "diis":
+            raise NotImplementedError(
+                f"not ported yet: SCF method {opts.method!r} (ROADMAP A13)")
+
+        def step_and_err(fock):
+            dm = eng.dm_from_fock(fock, theta)
+            f_new = eng.fock(dm, theta)
+            err = eng.diis_err(f_new, dm, theta)
+            return f_new, err
+
+        f0 = self._start_fock(theta)
+        # final answer: the pair-consistent INPUT Fock — dm_from_fock of it
+        # reproduces the density whose residual is best_err
+        f_star, _, n_iter, best_err, errh = diis_solve(step_and_err, f0, opts)
+        if best_err > opts.tol:
+            log(f"DIIS exited above tol (residual {best_err:.3e})", level=0)
+        self.stats.update(iterations=n_iter, residual=best_err,
+                          residual_history=errh)
+        return eng.dm_from_fock(f_star, theta)
+
+    def _sync(self):
+        if self.mol.device.type == "cuda":
+            torch.cuda.synchronize(self.mol.device)
+
+    # --- user API --------------------------------------------------------
+    def run(self):
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            theta = self._theta
+            if theta is None:
+                theta = self._build_theta(self._all_params(),
+                                          stats=self.stats)
+            self._sync()
+            t1 = time.perf_counter()
+            self._dm = self._solver(theta)
+            self._sync()
+            t2 = time.perf_counter()
+            self._energy = self.engine.energy(self._dm, theta)
+            self._sync()
+            self.stats.update(theta_s=t1 - t0, scf_s=t2 - t1,
+                              energy_s=time.perf_counter() - t2)
+        self._theta = theta
+        self._has_run = True
+        return self
+
+    def energy(self):
+        assert self._has_run, "call .run() first"
+        return self._energy
+
+    def aodm(self):
+        assert self._has_run, "call .run() first"
+        dm = self._dm
+        if self.engine.polarized:
+            return SpinParam(u=dm[0], d=dm[1])
+        return dm
+
+    def dm2energy(self, dm):
+        if isinstance(dm, SpinParam):
+            dm = torch.stack([dm.u, dm.d], dim=0)
+        if self._theta is None:
+            self._theta = self._build_theta(self._all_params())
+        return self.engine.energy(dm, self._theta)
+
+    def get_system(self):
+        return self.mol
+
+
+def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
+       opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
+    """Hartree-Fock front end.
+
+    Every molecule takes the dense route: eri = eri_dense(...) and theta
+    carries its exchange layout eri_k = eri.permute(0,2,1,3), the tensor
+    the JAX package reaches through its blocked route at benzene size
+    (its byte limits are sized for a 16 GB chip). Above
+    config.DENSE_ERI_BYTES_LIMIT the blocked/streamed route is needed."""
+    if hasattr(mol, "lattice"):
+        raise NotImplementedError(
+            "not ported yet: periodic Hartree-Fock (ROADMAP A14)")
+    if variational or (opts is not None and opts.method != "diis"):
+        raise NotImplementedError(
+            "not ported yet: the variational SCF mode (ROADMAP A13)")
+    if opts is not None and opts.guess not in ("sad", "gwh"):
+        raise ValueError(f"unknown initial guess {opts.guess!r}")
+    nao = mol.meta.nao
+    if nao ** 4 * 8 > config.DENSE_ERI_BYTES_LIMIT:
+        raise NotImplementedError(
+            f"not ported yet: nao = {nao} needs {nao ** 4 * 8} bytes of dense "
+            f"ERI, above the {config.DENSE_ERI_BYTES_LIMIT}-byte limit of the "
+            "dense route; the blocked/streamed J/K route is ROADMAP A12")
+    polarized = mol.polarized if restricted is None else (not restricted)
+    occ = _occ_array(mol, polarized)
+    engine = HFEngine(polarized=polarized)
+
+    def build_theta(params, stats=None):
+        dev = mol.device
+
+        def sync():
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        theta = build_core_theta(mol.meta, params["basis"], params["atomzs"],
+                                 efield=params.get("efield"),
+                                 efield_grad=params.get("efield_grad"),
+                                 efield_grad2=params.get("efield_grad2"),
+                                 with_eri=False)
+        sync()
+        t1 = time.perf_counter()
+        scr = _screened(mol)
+        eri = eri_dense(mol.meta, params["basis"], screened=scr)
+        theta["eri_k"] = eri.permute(0, 2, 1, 3).contiguous()
+        del eri
+        theta["occ"] = occ
+        sync()
+        if stats is not None:
+            stats.update(int1e_s=t1 - t0, eri_s=time.perf_counter() - t1)
+        log(f"theta built: 1e {t1 - t0:.2f}s, eri "
+            f"{time.perf_counter() - t1:.2f}s")
+        return theta
+
+    return SCF_QCCalc(mol, engine, build_theta=build_theta,
+                      opts=opts or SCFOptions())

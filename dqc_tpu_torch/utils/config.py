@@ -1,0 +1,55 @@
+"""Global configuration knobs and the device rule of the port.
+
+Counterpart of dqc_tpu/utils/config.py. The port runs on the CUDA card unless
+the caller asks for the CPU: `resolve_device(None)` means "cuda" and raises
+when no card is present. Nothing carries on on the CPU by itself.
+"""
+from __future__ import annotations
+
+import os as _os
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass
+class _Config:
+    # target size in bytes of the Hermite-R intermediates of one bra block
+    # in coulomb_contract, which picks its block from it. The estimate counts
+    # the recursion's tensors, not the copies einsum and bmm make, so the
+    # peak of eri_dense is several times larger: on an H100, benzene/def2-SVP,
+    # 512 MiB here gave a 7.6 GiB peak and the same build time as 1 GiB
+    ERI_R_BYTES: int = 512 * 1024 ** 2
+    # a dense nao^4 f64 ERI tensor above this many bytes is refused
+    # (80 GB card: the exchange-layout tensor plus the build's temporaries
+    # take about 3x the tensor itself)
+    DENSE_ERI_BYTES_LIMIT: int = 16 * 1024 ** 3
+    # verbosity: 0 silent, 1 progress lines, 2 debug
+    VERBOSE: int = 0    # overridden by env DQC_TPU_VERBOSE at import
+
+
+config = _Config()
+config.VERBOSE = int(_os.environ.get("DQC_TPU_VERBOSE", config.VERBOSE))
+
+DTYPE = torch.float64
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device a calculation runs on. None means the CUDA card; without
+    one the caller has to ask for the CPU by name."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "dqc_tpu_torch runs on a CUDA device by default and "
+                "torch.cuda.is_available() is False; pass device='cpu' to "
+                "run on the CPU")
+        return torch.device("cuda", torch.cuda.current_device())
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() "
+                "is False")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
