@@ -3,16 +3,22 @@
 
     python3 chip_smoke.py
 
-Builds the hand-written CUDA kernel of the port from the sources in this
-checkout, holds it against its plain PyTorch version on the card, drives the
-port's main path — restricted Hartree-Fock on benzene/def2-SVP (nao = 114)
-through `Mol`, `HF`, `SCF_QCCalc.run` — and checks what comes out. Any failed
-check or exception ends the run with a non-zero exit code. Without a CUDA
-device it fails at once and prints no result.
+Builds the three hand-written CUDA kernels of the port from the sources in
+this checkout (K1 ds_jk, K2 ds_dens_gga, K3 ds_vxc_gga; one nvcc per source,
+all started together), holds each against its plain PyTorch version on the
+card, drives the port's two paths through the entry points a user calls —
+restricted Hartree-Fock and restricted B3LYP Kohn-Sham on benzene/def2-SVP
+(nao = 114; grid level 2, 78,144 points) through `Mol`, `HF`/`KS`,
+`SCF_QCCalc.run` — and checks what comes out against the JAX-CPU anchors.
+Any failed check or exception ends the run with a non-zero exit code.
+Without a CUDA device it fails at once and prints no result.
 
 One JSON object per line: `device`, the card's name and power limit as
-nvidia-smi prints them, `build`, `kernel_checks`, `main_path`, `eri_dense`,
-`eigh`, `small`, `kernels`, and as the last line
+nvidia-smi prints them, `build`, `kernel_checks`, `main_path` (HF),
+`eri_dense`, `eigh`, `xc_kernel_checks`, `main_path_ks`, `ks_kernel_checks`,
+`ks_iteration_ms`, `ks_iteration_profile` (one KS iteration under
+torch.profiler: device time by kernel, the card's idle share), `small`,
+`kernels`, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports the port only; nothing of JAX and nothing of the JAX package.
@@ -23,6 +29,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -33,9 +40,12 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import dqc_tpu_torch as dq                                    # noqa: E402
-from dqc_tpu_torch.ops import hopper_jk                       # noqa: E402
+from dqc_tpu_torch.ops import _nvcc, hopper_xc                # noqa: E402
 from dqc_tpu_torch.ops.hopper_jk import ds_jk, ds_jk_reference  # noqa: E402
+from dqc_tpu_torch.ops.hopper_xc import (                     # noqa: E402
+    ds_dens_gga, ds_dens_reference, ds_vxc_gga, ds_vxc_reference)
 from dqc_tpu_torch.scf.eigh import safe_eigh                  # noqa: E402
+from dqc_tpu_torch.xc import integrate                        # noqa: E402
 
 DEV = torch.device("cuda", 0)
 
@@ -45,10 +55,20 @@ DEV = torch.device("cuda", 0)
 HBM_BYTES_PER_S = 3.35e12
 FP64_FLOP_PER_S = 67e12
 
-GATE_REL = 1e-10          # kernel against its plain version, J and K
+GATE_REL = 1e-10          # each kernel against its plain version
 # JAX-CPU value of dqc_tpu.HF(benzene/def2-svp, SCFOptions(mixed=False)),
 # same geometry, converged to a residual of 9e-10 (float64, x86-64 host)
 HF_ANCHOR_HA = -230.5357956254473
+# JAX-CPU value of dqc_tpu.KS(benzene/def2-svp, grid=2, "b3lyp"), the
+# energy bench.py records; a fresh run of dqc_tpu.KS(..., SCFOptions(
+# mixed=False)) on an x86-64 host gave -232.08457237792118 (2e-12 from it)
+KS_ANCHOR_HA = -232.08457237792322
+KS_GATE_HA = 1e-8
+NELEC = 42
+# sum_g dvol rho of the converged density on the level-2 grid: the grid
+# integrates benzene's 42 electrons to 3.8e-4 (its quadrature error); the
+# same dqc_tpu.KS run gave this value on the JAX package's own grid
+KS_NELEC_GRID_JAX = 41.999618601085785
 H2_ANCHOR_HA = -1.07195346   # RHF H2/3-21G, d = 1.0 a0 (PySCF)
 
 ANGSTROM_TO_BOHR = 1.0 / 0.529177210903
@@ -130,6 +150,68 @@ def time_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def xc_tables(ng, nao, seed):
+    """Seeded AO-like tables with a wide spread of magnitudes (the
+    generator of tests/test_pallas_xc.py); numbers from numpy."""
+    rng = np.random.default_rng(seed)
+    ao = rng.standard_normal((ng, nao)) * np.exp(rng.uniform(-6, 2, (ng, nao)))
+    ag = rng.standard_normal((3, ng, nao)) * np.exp(
+        rng.uniform(-6, 2, (3, ng, nao)))
+    return torch.as_tensor(ao, device=DEV), torch.as_tensor(ag, device=DEV)
+
+
+def _compare(rec, name, a, b, r, label, kernel):
+    scale = float(r.abs().max())
+    err = float((a - r).abs().max())
+    rec[f"{name}_max_abs_err"] = err
+    rec[f"{name}_rel_err"] = err / scale
+    rec[f"{name}_bit_identical"] = bool(torch.equal(a, b))
+    if not (err / scale <= GATE_REL):
+        fail(f"{kernel} {label}: {name} rel err {err / scale:.3e} "
+             f"> {GATE_REL}")
+    if not torch.equal(a, b):
+        fail(f"{kernel} {label}: {name} differs between two launches")
+
+
+def check_dens(ao, ag, dm, label):
+    """K2 against its plain version, launched twice."""
+    out1 = ds_dens_gga(ao, ag, dm)
+    out2 = ds_dens_gga(ao, ag, dm)
+    ref = ds_dens_reference(ao, ag, dm)
+    torch.cuda.synchronize()
+    rec = {"case": label, "ng": ao.shape[0], "nao": ao.shape[1]}
+    for name, a, b, r in (("rho", out1[0], out2[0], ref[0]),
+                          ("gdot", out1[1], out2[1], ref[1])):
+        _compare(rec, name, a, b, r, label, "ds_dens_gga")
+    return rec
+
+
+def check_vxc(ao, ag, vr, vg, label):
+    """K3 against its plain version, launched twice."""
+    v1 = ds_vxc_gga(ao, ag, vr, vg)
+    v2 = ds_vxc_gga(ao, ag, vr, vg)
+    ref = ds_vxc_reference(ao, ag, vr, vg)
+    torch.cuda.synchronize()
+    rec = {"case": label, "ng": ao.shape[0], "nao": ao.shape[1]}
+    _compare(rec, "v", v1, v2, ref, label, "ds_vxc_gga")
+    return rec
+
+
+def time_turns(kernel, plain, reps=20):
+    """(kernel runs, plain runs) in turns: plain, kernel, kernel, plain."""
+    p1 = time_ms(plain, reps)
+    k1 = time_ms(kernel, reps)
+    k2 = time_ms(kernel, reps)
+    p2 = time_ms(plain, reps)
+    return [k1, k2], [p1, p2]
+
+
+def bound(bytes_moved, flops):
+    b = bytes_moved / HBM_BYTES_PER_S * 1e3
+    o = flops / FP64_FLOP_PER_S * 1e3
+    return max(b, o), ("bytes" if b >= o else "operations")
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -143,10 +225,16 @@ def main():
                      "count": torch.cuda.device_count()}})
     print(smi_line, flush=True)
 
-    # 2. build
-    b = hopper_jk.build(force=True)
-    emit({"build": {"source": "dqc_tpu_torch/csrc/ds_jk.cu",
-                    "seconds": b["seconds"], "ptxas": b["log"]}})
+    # 2. build: one nvcc per source, all started together
+    names = ("ds_jk", "ds_dens_gga", "ds_vxc_gga")
+    t_build = time.perf_counter()
+    with ThreadPoolExecutor(len(names)) as pool:
+        builds = dict(zip(names, pool.map(
+            lambda nm: _nvcc.build(nm, force=True), names)))
+    emit({"build": {nm: {"source": f"dqc_tpu_torch/csrc/{nm}.cu",
+                         "seconds": b["seconds"], "ptxas": b["log"]}
+                    for nm, b in builds.items()},
+          "seconds": time.perf_counter() - t_build})
 
     # 3. the kernel against its plain version on seeded tensors
     checks = []
@@ -273,7 +361,191 @@ def main():
     err_abs = max(max(c["trail_max_abs_err"], c["mid_max_abs_err"])
                   for c in real_checks)
 
-    # 5. a small molecule against its published energy
+    k1_hf = {"launches": launches, "ms_runs": [kern_a, kern_b],
+             "plain_ms_runs": [plain_a, plain_b], "library_ms": lib_ms,
+             "bytes_moved": bytes_moved, "flops": flops,
+             "bound_ms": max(bound_bytes_ms, bound_ops_ms),
+             "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
+             else "operations", "max_abs_err": err_abs}
+    del calc, theta, eri_k, dm, dmc, X, fock, k_ref, j_ref
+    torch.cuda.empty_cache()
+
+    # 5. K2 and K3 against their plain versions on seeded tables
+    xc_checks = []
+    for ng, nao in ((100, 10), (700, 26), (78144, 114), (5000, 150)):
+        ao, ag = xc_tables(ng, nao, seed=nao)
+        rng = np.random.default_rng(ng)
+        dm = rng.standard_normal((nao, nao))
+        xc_checks.append(check_dens(ao, ag, torch.as_tensor(dm + dm.T,
+                                                             device=DEV),
+                                    f"tables({ng},{nao})"))
+        # a non-symmetric dm as well: the kernel must not rely on symmetry
+        xc_checks.append(check_dens(ao, ag, torch.as_tensor(dm, device=DEV),
+                                    f"tables({ng},{nao}) nonsym dm"))
+        vr = torch.as_tensor(rng.standard_normal(ng), device=DEV)
+        vg = torch.as_tensor(rng.standard_normal((3, ng)), device=DEV)
+        xc_checks.append(check_vxc(ao, ag, vr, vg, f"tables({ng},{nao})"))
+        del ao, ag
+    torch.cuda.empty_cache()
+    emit({"xc_kernel_checks": xc_checks, "gate_rel": GATE_REL})
+
+    # 6. the main path of this slice: RKS-B3LYP on benzene/def2-SVP, grid 2
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    calc = dq.KS(mol, xc="b3lyp")
+    ds_jk.launches = ds_dens_gga.launches = ds_vxc_gga.launches = 0
+    calc.run()
+    ks_launches = {"ds_jk": ds_jk.launches,
+                   "ds_dens_gga": ds_dens_gga.launches,
+                   "ds_vxc_gga": ds_vxc_gga.launches}
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak_bytes = torch.cuda.max_memory_allocated()
+    st = calc.stats
+    theta = calc._theta
+    grid = theta["grid"]
+    xc = calc.engine.xc
+    dm = calc.aodm().contiguous()
+    e_kernel = float(calc.energy())
+    ng = int(grid["dvol"].shape[0])
+    # the plain path: the same converged dm through the plain versions of
+    # all three kernels
+    k_ref, j_ref = ds_jk_reference(theta["eri_k"], dm)
+    rho, gdot = ds_dens_reference(grid["ao"], grid["ao_grad"], dm)
+    dens = {"rho": rho, "grad": gdot}
+    exc_plain = torch.sum(integrate._edens_at(xc, dens, False)
+                          * grid["dvol"])
+    e_plain = float(calc.engine.energy_from_parts(dm, j_ref, k_ref, theta,
+                                                  exc=exc_plain))
+    trace_ds = float(torch.einsum("ij,ji->", dm, theta["ovlp"]))
+    nelec_grid = float(torch.sum(grid["dvol"] * rho))
+    iters = st["iterations"]
+    main_ks = {
+        "system": "benzene", "basis": "def2-svp", "method": "RKS-B3LYP",
+        "grid": 2, "ngrid": ng, "nao": mol.meta.nao,
+        "device": str(mol.device), "int1e_s": st["int1e_s"],
+        "eri_dense_s": st["eri_s"], "grid_s": st["grid_s"],
+        "scf_s": st["scf_s"], "iterations": iters,
+        "s_per_iteration": st["scf_s"] / max(iters, 1),
+        "energy_s": st["energy_s"], "total_s": total_s,
+        "residual": st["residual"], "tol": calc.opts.tol,
+        "energy_ha": e_kernel, "energy_plain_ha": e_plain,
+        "anchor_ha": KS_ANCHOR_HA,
+        "energy_minus_anchor_ha": e_kernel - KS_ANCHOR_HA,
+        "launches": ks_launches, "fock_builds": iters + 1,
+        "trace_dm_ovlp": trace_ds, "sum_dvol_rho": nelec_grid,
+        "sum_dvol_rho_jax": KS_NELEC_GRID_JAX,
+        "peak_device_bytes": peak_bytes, "guess": "gwh",
+    }
+    emit({"main_path_ks": main_ks})
+    if mol.meta.nao != 114 or ng != 78144:
+        fail(f"nao = {mol.meta.nao}, ng = {ng}; expected 114 and 78144")
+    if not np.isfinite(e_kernel) or tuple(dm.shape) != (114, 114):
+        fail("KS energy not finite or dm of the wrong shape")
+    if not st["residual"] <= calc.opts.tol:
+        fail(f"KS residual {st['residual']:.3e} above tol {calc.opts.tol}")
+    if abs(e_kernel - KS_ANCHOR_HA) > KS_GATE_HA:
+        fail(f"KS energy {e_kernel!r} vs JAX-CPU anchor {KS_ANCHOR_HA!r}")
+    if abs(e_kernel - e_plain) > 1e-9:
+        fail(f"KS kernel-path energy {e_kernel!r} vs plain-path {e_plain!r}")
+    if abs(trace_ds - NELEC) > 1e-8:
+        fail(f"KS tr(D S) = {trace_ds!r}, expected {NELEC}")
+    if abs(nelec_grid - KS_NELEC_GRID_JAX) > 1e-8 or \
+            abs(nelec_grid - NELEC) > 1e-3:
+        fail(f"sum dvol rho = {nelec_grid!r}, expected "
+             f"{KS_NELEC_GRID_JAX!r} (JAX-CPU, same grid)")
+    if not (ks_launches["ds_jk"] >= iters + 1
+            and ks_launches["ds_dens_gga"] >= iters + 1
+            and ks_launches["ds_vxc_gga"] >= iters):
+        fail(f"kernels launched {ks_launches} times for {iters} iterations")
+
+    # 7. K2/K3 on benzene's grid tables: the converged dm and the real
+    # pointwise potentials vrho, vgrad at it
+    ao, ag = grid["ao"], grid["ao_grad"]
+    _, vbar = integrate._pointwise_adjoints(xc, dens, grid["dvol"], False,
+                                            None)
+    vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+    real_xc = [check_dens(ao, ag, dm, "benzene grid, converged dm"),
+               check_vxc(ao, ag, vr, vg, "benzene grid, real vrho/vgrad")]
+    xc_checks += real_xc
+    emit({"ks_kernel_checks": real_xc})
+
+    # 8. times at the main path's shape, in turns; library_ms is PyTorch's
+    # own way to compute the same function, timed here and used nowhere
+    def dens_library():
+        b = ao @ dm
+        (b * ao).sum(-1)
+        2.0 * (torch.matmul(ag, dm) * ao).sum(-1)
+
+    def vxc_library():
+        w = vr[:, None] * ao + 2.0 * torch.einsum("dg,dgi->gi", vg, ag)
+        w.T @ ao
+
+    eri_k = theta["eri_k"]
+    k1_ms, k1_plain = time_turns(lambda: ds_jk(eri_k, dm),
+                                 lambda: ds_jk_reference(eri_k, dm))
+    k2_ms, k2_plain = time_turns(lambda: ds_dens_gga(ao, ag, dm),
+                                 lambda: ds_dens_reference(ao, ag, dm))
+    k3_ms, k3_plain = time_turns(lambda: ds_vxc_gga(ao, ag, vr, vg),
+                                 lambda: ds_vxc_reference(ao, ag, vr, vg))
+    k2_lib = time_ms(dens_library, 20)
+    k3_lib = time_ms(vxc_library, 20)
+    nao = mol.meta.nao
+    k2_bytes = 8 * (4 * ng * nao + nao * nao + 4 * ng)
+    k2_flops = 8 * ng * nao * nao
+    k3_bytes = 8 * (4 * ng * nao + 4 * ng + nao * nao)
+    k3_flops = 2 * ng * nao * nao + 8 * ng * nao
+    k2_bound, k2_by = bound(k2_bytes, k2_flops)
+    k3_bound, k3_by = bound(k3_bytes, k3_flops)
+    per_it = {"ds_jk": min(k1_ms) * ks_launches["ds_jk"] / (iters + 1),
+              "ds_dens_gga": min(k2_ms) * ks_launches["ds_dens_gga"]
+              / (iters + 1),
+              "ds_vxc_gga": min(k3_ms) * ks_launches["ds_vxc_gga"]
+              / max(iters, 1)}
+    emit({"ks_iteration_ms": {"s_per_iteration_ms":
+                              1e3 * main_ks["s_per_iteration"],
+                              "kernel_ms_per_iteration": per_it}})
+
+    # one DIIS iteration of the main path (density from a Fock matrix, Fock
+    # build, DIIS error) under torch.profiler: device time by kernel and
+    # the share of the iteration in which the card is idle
+    eng = calc.engine
+    with torch.no_grad():
+        fock = eng.fock(dm, theta)
+
+        def one_iteration():
+            d = eng.dm_from_fock(fock, theta)
+            eng.diis_err(eng.fock(d, theta), d, theta)
+        one_iteration()
+        torch.cuda.synchronize()
+        t_it = time.perf_counter()
+        for _ in range(3):
+            one_iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_it) / 3 * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                one_iteration()
+            torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 3e3
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
+    emit({"ks_iteration_profile": {
+        "wall_ms_per_iteration": wall_ms,
+        "device_ms_per_iteration": dev_ms,
+        "device_idle_share": (1.0 - dev_ms / wall_ms) if dev_ms > 0
+        else None,
+        "kernels_per_iteration": sum(e.count for e in dev_events) / 3,
+        "top_device_ms_per_iteration": [
+            {"name": e.key[:80], "ms": e.self_device_time_total / 3e3,
+             "launches": e.count / 3} for e in top],
+        "card": smi_line}})
+
+    # 9. a small molecule against its published energy
     qc = dq.HF(dq.Mol("H -0.5 0 0; H 0.5 0 0", basis="3-21G")).run()
     e_h2 = float(qc.energy())
     emit({"small": {"system": "H2", "basis": "3-21G", "energy_ha": e_h2,
@@ -282,21 +554,61 @@ def main():
     if abs(e_h2 - H2_ANCHOR_HA) > 1e-6:
         fail(f"H2/3-21G energy {e_h2!r} vs {H2_ANCHOR_HA}")
 
+    def xc_err(checks):
+        return max(v for c in checks for k, v in c.items()
+                   if k.endswith("_max_abs_err"))
+
+    dens_checks = [c for c in xc_checks if "rho_max_abs_err" in c]
+    vxc_checks = [c for c in xc_checks if "v_max_abs_err" in c]
     emit({"kernels": [{
         "name": "ds_jk", "route": "cuda",
         "source": "dqc_tpu_torch/csrc/ds_jk.cu",
         "replaces": "dqc_tpu/ops/pallas_jk.py:211",
-        "launches": launches,
-        "max_abs_err": err_abs,
-        "ms": kernel_ms, "plain_ms": min(plain_a, plain_b),
-        "bound_ms": max(bound_bytes_ms, bound_ops_ms),
-        "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
-        else "operations",
-        "library_ms": lib_ms,
-        "n": n, "bytes_moved": bytes_moved, "flops": flops,
-        "ms_runs": [kern_a, kern_b], "plain_ms_runs": [plain_a, plain_b],
+        "launches": ks_launches["ds_jk"],
+        "max_abs_err": k1_hf["max_abs_err"],
+        "ms": min(k1_ms), "plain_ms": min(k1_plain),
+        "bound_ms": k1_hf["bound_ms"], "bound_by": k1_hf["bound_by"],
+        "library_ms": k1_hf["library_ms"],
+        "launches_hf_path": k1_hf["launches"],
+        "n": n, "bytes_moved": k1_hf["bytes_moved"], "flops": k1_hf["flops"],
+        "ms_runs": k1_ms, "plain_ms_runs": k1_plain,
+        "ms_runs_hf_phase": k1_hf["ms_runs"],
+        "plain_ms_runs_hf_phase": k1_hf["plain_ms_runs"],
         "gate_rel": GATE_REL, "checks": checks,
-        "gbytes_per_s": bytes_moved / (kernel_ms * 1e-3) / 1e9,
+        "gbytes_per_s": k1_hf["bytes_moved"] / (min(k1_ms) * 1e-3) / 1e9,
+        "card": smi_line,
+    }, {
+        "name": "ds_dens_gga", "route": "cuda",
+        "source": "dqc_tpu_torch/csrc/ds_dens_gga.cu",
+        "replaces": "dqc_tpu/ops/pallas_xc.py:254",
+        "launches": ks_launches["ds_dens_gga"],
+        "max_abs_err": xc_err(real_xc[:1]),
+        "ms": min(k2_ms), "plain_ms": min(k2_plain),
+        "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
+        "ng": ng, "nao": nao, "bytes_moved": k2_bytes, "flops": k2_flops,
+        "ms_runs": k2_ms, "plain_ms_runs": k2_plain,
+        "max_abs_err_all_cases": xc_err(dens_checks),
+        "max_rel_err_all_cases": max(max(c["rho_rel_err"], c["gdot_rel_err"])
+                                     for c in dens_checks),
+        "gate_rel": GATE_REL,
+        "gbytes_per_s": k2_bytes / (min(k2_ms) * 1e-3) / 1e9,
+        "gflop_per_s": k2_flops / (min(k2_ms) * 1e-3) / 1e9,
+        "card": smi_line,
+    }, {
+        "name": "ds_vxc_gga", "route": "cuda",
+        "source": "dqc_tpu_torch/csrc/ds_vxc_gga.cu",
+        "replaces": "dqc_tpu/ops/pallas_xc.py:348",
+        "launches": ks_launches["ds_vxc_gga"],
+        "max_abs_err": xc_err(real_xc[1:]),
+        "ms": min(k3_ms), "plain_ms": min(k3_plain),
+        "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib,
+        "ng": ng, "nao": nao, "bytes_moved": k3_bytes, "flops": k3_flops,
+        "ms_runs": k3_ms, "plain_ms_runs": k3_plain,
+        "max_abs_err_all_cases": xc_err(vxc_checks),
+        "max_rel_err_all_cases": max(c["v_rel_err"] for c in vxc_checks),
+        "gate_rel": GATE_REL,
+        "gbytes_per_s": k3_bytes / (min(k3_ms) * 1e-3) / 1e9,
+        "gflop_per_s": k3_flops / (min(k3_ms) * 1e-3) / 1e9,
         "card": smi_line,
     }], "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

@@ -3,9 +3,12 @@
 Differentiable quantum chemistry in float64. This package is the port of
 the JAX package `dqc_tpu` that stands beside it; it imports torch, numpy
 and scipy only. Ported so far: molecules, the vendored basis sets, the
-one- and two-electron integrals and restricted/unrestricted Hartree-Fock,
-with J and K of every Fock build from a hand-written CUDA kernel
-(ops/hopper_jk.py, csrc/ds_jk.cu).
+one- and two-electron integrals, the integration grid, LDA and GGA
+functionals (hybrids included), and restricted/unrestricted Hartree-Fock
+and Kohn-Sham. On the card J and K of every Fock build come from a
+hand-written CUDA kernel (ops/hopper_jk.py, csrc/ds_jk.cu), and the grid
+density and V_xc of a GGA from two more (ops/hopper_xc.py,
+csrc/ds_dens_gga.cu, csrc/ds_vxc_gga.cu).
 
 Calculations run on the CUDA card unless the caller passes device="cpu";
 without a card and without that argument the entry points raise.
@@ -18,16 +21,14 @@ from .basis import loadbasis                     # noqa: F401
 from .utils.datastruct import (                  # noqa: F401
     SpinParam, CGTOBasis, AtomCGTOBasis)
 from .system.mol import Mol                      # noqa: F401
-from .scf.qccalc import HF, SCF_QCCalc           # noqa: F401
+from .scf.qccalc import HF, KS, SCF_QCCalc       # noqa: F401
 from .scf.fixed_point import SCFOptions          # noqa: F401
+from .xc import get_xc, get_libxc                # noqa: F401
 
 # names of the JAX package that later parts of the port bring
 _NOT_PORTED = {
-    "KS": "Kohn-Sham needs the grid and XC stack (next part of the port)",
     "Sol": "periodic systems (ROADMAP A14)",
-    "get_xc": "XC functionals (next part of the port)",
-    "get_libxc": "XC functionals (next part of the port)",
-    "ValGrad": "grid densities (next part of the port)",
+    "ValGrad": "the meta-GGA and custom-XC density containers (ROADMAP A10)",
     "band_energies": "k-point periodic systems (ROADMAP A15)",
 }
 for _n in ("hessian_pos", "vibration", "ir_spectrum", "raman_spectrum",

@@ -52,3 +52,25 @@ def theta_from_numpy(theta_np: dict, device=None) -> dict:
         out["eri_k"] = _f64(theta_np["eri"], device).permute(
             0, 2, 1, 3).contiguous()
     return out
+
+
+def grid_theta_from_numpy(coords, dvol, ao, ao_grad=None, ao_lapl=None,
+                          family: int = None, device=None) -> dict:
+    """Grid tables of the port (xc/integrate.setup_grid_theta's dict) from
+    the JAX package's grid theta as numpy: coords (ng, 3), dvol (ng,),
+    ao (ng, nao), ao_grad (3, ng, nao) — the layout both packages store —
+    and ao_lapl (ng, nao). With it both packages integrate on identical
+    tables, so XC comparisons do not depend on the grid port."""
+    device = resolve_device(device)
+    if family is None:
+        family = 1 if ao_grad is None else (2 if ao_lapl is None else 4)
+    out = {"coords": _f64(coords, device), "dvol": _f64(dvol, device),
+           "ao": _f64(ao, device), "family": family}
+    if ao_grad is not None:
+        ag = np.asarray(ao_grad)
+        if ag.shape[0] != 3 or ag.shape[1:] != np.shape(ao):
+            raise ValueError(f"ao_grad must be (3, ng, nao), got {ag.shape}")
+        out["ao_grad"] = _f64(ag, device)
+    if ao_lapl is not None:
+        out["ao_lapl"] = _f64(ao_lapl, device)
+    return out

@@ -15,77 +15,34 @@ the input.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 `ds_jk_reference`; a CUDA tensor launches the kernel or raises. Nothing
-switches the kernel off. Forward only, like the kernel it replaces.
+switches the kernel off. The kernel is forward only, like the one it
+replaces: handed a CUDA tensor that requires grad under autograd, the
+wrapper raises; the plain version on the CPU passes autograd through.
 
 The shared library is built at first use with nvcc into
-dqc_tpu_torch/_build/ and loaded through ctypes; nothing CUDA-only is
-touched at import.
+dqc_tpu_torch/_build/ and loaded through ctypes (ops/_nvcc.py); nothing
+CUDA-only is touched at import.
 """
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import subprocess
-import time
 
 import torch
 
-_HERE = os.path.dirname(os.path.abspath(__file__))
-_PKG = os.path.dirname(_HERE)
-SOURCE = os.path.join(_PKG, "csrc", "ds_jk.cu")
-BUILD_DIR = os.path.join(_PKG, "_build")
-LIBRARY = os.path.join(BUILD_DIR, "libds_jk.so")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+from . import _nvcc
 
-_lib = None
-
-
-def _find_nvcc() -> str:
-    cands = [shutil.which("nvcc")]
-    for root in (os.environ.get("CUDA_HOME"), os.environ.get("CUDA_PATH"),
-                 "/usr/local/cuda"):
-        if root:
-            cands.append(os.path.join(root, "bin", "nvcc"))
-    for c in cands:
-        if c and os.path.isfile(c):
-            return c
-    raise RuntimeError("nvcc not found: the J+K kernel cannot be built "
-                       "(looked on PATH, CUDA_HOME, /usr/local/cuda)")
+SOURCE = _nvcc.source_path("ds_jk")
+_SYMBOLS = {"ds_jk_launch": _nvcc.ptr(5) + _nvcc.ints(3) + [ctypes.c_void_p]}
 
 
 def build(force: bool = False) -> dict:
-    """Compile csrc/ds_jk.cu into the shared library if it is missing or
-    older than the source. Returns {'seconds', 'built', 'log'}."""
-    t0 = time.perf_counter()
-    fresh = (os.path.isfile(LIBRARY)
-             and os.path.getmtime(LIBRARY) >= os.path.getmtime(SOURCE))
-    if fresh and not force:
-        return {"seconds": 0.0, "built": False, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = LIBRARY + f".{os.getpid()}.tmp"
-    cmd = [_find_nvcc()] + NVCC_FLAGS + ["-o", tmp, SOURCE]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}) building {SOURCE}:\n"
-            f"{res.stdout}\n{res.stderr}")
-    os.replace(tmp, LIBRARY)
-    return {"seconds": time.perf_counter() - t0, "built": True,
-            "log": (res.stdout + res.stderr).strip()}
+    """Compile csrc/ds_jk.cu if its library is missing or stale (always
+    with force=True). Returns {'seconds', 'built', 'log'}."""
+    return _nvcc.build("ds_jk", force=force)
 
 
 def _load():
-    global _lib
-    if _lib is None:
-        build()
-        lib = ctypes.CDLL(LIBRARY)
-        lib.ds_jk_launch.restype = ctypes.c_int
-        lib.ds_jk_launch.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-        _lib = lib
-    return _lib
+    return _nvcc.load("ds_jk", _SYMBOLS)
 
 
 def pick_chunks(n: int):
@@ -122,14 +79,15 @@ def ds_jk_reference(T, dm):
 def ds_jk(T, dm):
     """(out_trail, out_mid) of T (n,n,n,n) and dm (n,n), float64.
 
-    CPU tensors: the plain version. CUDA tensors: the kernel; T and dm must
-    be contiguous. Raises on anything the kernel does not take and on a
-    failed build or launch."""
+    CPU tensors: the plain version (differentiable). CUDA tensors: the
+    kernel; T and dm must be contiguous. Raises on anything the kernel does
+    not take, on a failed build or launch, and under autograd."""
     _check(T, dm)
     if T.device.type == "cpu":
         return ds_jk_reference(T, dm)
     if T.device.type != "cuda":
         raise RuntimeError(f"ds_jk has no kernel for device {T.device}")
+    _nvcc.no_autograd("ds_jk", T, dm)
     if not T.is_contiguous() or not dm.is_contiguous():
         raise ValueError("ds_jk needs contiguous T and dm on the card")
     lib = _load()

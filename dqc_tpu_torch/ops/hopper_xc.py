@@ -1,0 +1,175 @@
+"""Grid density and V_xc assembly of a GGA: wrappers of the hand-written
+Hopper kernels.
+
+Replaces the TPU kernels dqc_tpu/ops/pallas_xc.py::ds_dens_gga and
+::ds_vxc_gga (with its prologue build_wt). From the AO tables phi
+(ng, nao) and dphi (3, ng, nao), float64:
+
+  ds_dens_gga(ao, ao_grad, dm) -> rho[g]    = sum_ij dm[i,j] phi_i(g) phi_j(g)
+                                  gdot[d,g] = 2 sum_ij dm[i,j] dphi_d,i(g) phi_j(g)
+  ds_vxc_gga(ao, ao_grad, vrho, vgrad) -> raw V[i,j] = sum_g WT[i,g] phi_j(g),
+      WT[i,g] = vrho[g] phi_i(g) + 2 sum_d vgrad[d,g] dphi_d,i(g)
+      (quadrature weights folded into vrho, vgrad; the caller symmetrises)
+
+The kernels are csrc/ds_dens_gga.cu and csrc/ds_vxc_gga.cu (CUDA C++ for
+sm_90a; their headers say what bounds them and how they are laid out).
+None of the TPU machinery carries over: no hi/lo f32 planes, no (8,128)
+padding, no masked-iota column select, no limit on nao.
+
+Dispatch: tensors on the CPU take the plain PyTorch versions
+`ds_dens_reference` / `ds_vxc_reference`; CUDA tensors launch the kernel
+or raise. Nothing switches the kernels off. The kernels are forward only:
+handed a CUDA tensor that requires grad under autograd, the wrappers raise;
+the plain versions on the CPU pass autograd through. The shared libraries
+are built at first use (ops/_nvcc.py); nothing CUDA-only is touched at
+import.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _nvcc
+
+_DENS_SYMBOLS = {"ds_dens_gga_launch":
+                 _nvcc.ptr(5) + _nvcc.ints(2) + [ctypes.c_void_p]}
+_VXC_SYMBOLS = {"ds_vxc_gga_launch":
+                _nvcc.ptr(6) + _nvcc.ints(4) + [ctypes.c_void_p]}
+SOURCES = {"ds_dens_gga": _nvcc.source_path("ds_dens_gga"),
+           "ds_vxc_gga": _nvcc.source_path("ds_vxc_gga")}
+
+# ds_vxc_gga: rows/columns of V per block (kTile of the kernel), the number
+# of blocks aimed at (eight per multiprocessor of an H100), and the fewest
+# grid points a slice of the split grid axis gets
+V_TILE = 64
+V_TARGET_BLOCKS = 8 * 132
+V_MIN_POINTS = 64
+
+
+def build(force: bool = False) -> dict:
+    """Compile both kernels if their libraries are missing or stale
+    (always with force=True). Returns {name: {'seconds', 'built', 'log'}}."""
+    return {name: _nvcc.build(name, force=force) for name in SOURCES}
+
+
+def _check_tables(ao, ao_grad, name):
+    if ao.ndim != 2:
+        raise ValueError(f"{name}: ao must be (ng, nao), got {tuple(ao.shape)}")
+    ng, nao = ao.shape
+    if tuple(ao_grad.shape) != (3, ng, nao):
+        raise ValueError(f"{name}: ao_grad must be (3, {ng}, {nao}), got "
+                         f"{tuple(ao_grad.shape)}")
+    return ng, nao
+
+
+def _check_common(name, tensors):
+    dev = tensors[0].device
+    for t in tensors:
+        if t.dtype != torch.float64:
+            raise TypeError(f"{name} takes float64 tensors, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name} has no kernel for device {dev}")
+    _nvcc.no_autograd(name, *tensors)
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError(f"{name} needs contiguous tensors on the card")
+    return True
+
+
+def ds_dens_reference(ao, ao_grad, dm):
+    """Plain PyTorch version of ds_dens_gga: b = ao @ dm, the row dots and
+    the three gradient contractions, as the JAX package's
+    density_from_tables writes them.
+    Used on CPU tensors and as the oracle of the kernel on the card."""
+    b = ao @ dm
+    rho = torch.einsum("gi,gi->g", b, ao)
+    gb = torch.einsum("dgi,ij->dgj", ao_grad, dm)
+    gdot = 2.0 * torch.einsum("dgi,gi->dg", gb, ao)
+    return rho, gdot
+
+
+def ds_vxc_reference(ao, ao_grad, vrho, vgrad):
+    """Plain PyTorch version of ds_vxc_gga: the GGA terms of
+    xc/integrate._vxc_assemble (raw, unsymmetrised)."""
+    v = torch.einsum("gi,g,gj->ij", ao, vrho, ao)
+    return v + 2.0 * torch.einsum("dgi,dg,gj->ij", ao_grad, vgrad, ao)
+
+
+def ds_dens_gga(ao, ao_grad, dm):
+    """(rho (ng,), gdot (3, ng)) from ao (ng, nao), ao_grad (3, ng, nao) and
+    dm (nao, nao), float64 (dm need not be symmetric).
+
+    CPU tensors: the plain version (differentiable). CUDA tensors: the
+    kernel; every tensor must be contiguous. Raises on anything the kernel
+    does not take, on a failed build or launch, and under autograd."""
+    ng, nao = _check_tables(ao, ao_grad, "ds_dens_gga")
+    if tuple(dm.shape) != (nao, nao):
+        raise ValueError(f"ds_dens_gga: dm must be ({nao}, {nao}), got "
+                         f"{tuple(dm.shape)}")
+    if not _check_common("ds_dens_gga", (ao, ao_grad, dm)):
+        return ds_dens_reference(ao, ao_grad, dm)
+    lib = _nvcc.load("ds_dens_gga", _DENS_SYMBOLS)
+    with torch.cuda.device(ao.device):
+        rho = torch.empty((ng,), dtype=ao.dtype, device=ao.device)
+        gdot = torch.empty((3, ng), dtype=ao.dtype, device=ao.device)
+        stream = torch.cuda.current_stream(ao.device).cuda_stream
+        err = lib.ds_dens_gga_launch(ao.data_ptr(), ao_grad.data_ptr(),
+                                     dm.data_ptr(), rho.data_ptr(),
+                                     gdot.data_ptr(), ng, nao, stream)
+    if err != 0:
+        raise RuntimeError(f"ds_dens_gga kernel launch failed: cudaError "
+                           f"{err} (ng={ng}, nao={nao})")
+    ds_dens_gga.launches += 1
+    return rho, gdot
+
+
+ds_dens_gga.launches = 0   # launches of the CUDA kernel (never the plain version)
+
+
+def pick_split(ng: int, nao: int):
+    """(points per slice, number of slices) of the grid axis for
+    ds_vxc_gga: about V_TARGET_BLOCKS blocks over the tiles of V, and no
+    slice shorter than V_MIN_POINTS points."""
+    tiles = (-(-nao // V_TILE)) ** 2
+    want = max(1, min(-(-ng // V_MIN_POINTS), -(-V_TARGET_BLOCKS // tiles)))
+    pts = -(-ng // want)
+    return pts, -(-ng // pts)
+
+
+def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
+    """Raw V (nao, nao) from ao (ng, nao), ao_grad (3, ng, nao), vrho (ng,)
+    and vgrad (3, ng), float64.
+
+    CPU tensors: the plain version (differentiable). CUDA tensors: the
+    kernel; every tensor must be contiguous. Raises on anything the kernel
+    does not take, on a failed build or launch, and under autograd."""
+    ng, nao = _check_tables(ao, ao_grad, "ds_vxc_gga")
+    if tuple(vrho.shape) != (ng,) or tuple(vgrad.shape) != (3, ng):
+        raise ValueError(f"ds_vxc_gga: vrho must be ({ng},) and vgrad "
+                         f"(3, {ng}), got {tuple(vrho.shape)} and "
+                         f"{tuple(vgrad.shape)}")
+    if not _check_common("ds_vxc_gga", (ao, ao_grad, vrho, vgrad)):
+        return ds_vxc_reference(ao, ao_grad, vrho, vgrad)
+    lib = _nvcc.load("ds_vxc_gga", _VXC_SYMBOLS)
+    pts, n_split = pick_split(ng, nao)
+    with torch.cuda.device(ao.device):
+        v = torch.empty((nao, nao), dtype=ao.dtype, device=ao.device)
+        part = torch.empty((n_split, nao, nao), dtype=ao.dtype,
+                           device=ao.device)
+        stream = torch.cuda.current_stream(ao.device).cuda_stream
+        err = lib.ds_vxc_gga_launch(ao.data_ptr(), ao_grad.data_ptr(),
+                                    vrho.data_ptr(), vgrad.data_ptr(),
+                                    v.data_ptr(), part.data_ptr(), ng, nao,
+                                    pts, n_split, stream)
+    if err != 0:
+        raise RuntimeError(f"ds_vxc_gga kernel launch failed: cudaError "
+                           f"{err} (ng={ng}, nao={nao}, n_split={n_split})")
+    ds_vxc_gga.launches += 1
+    return v
+
+
+ds_vxc_gga.launches = 0   # launches of the CUDA kernel (never the plain version)

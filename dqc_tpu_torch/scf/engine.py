@@ -1,8 +1,8 @@
-"""Hartree-Fock SCF engine: plain functions of (density matrix, theta).
+"""HF and KS SCF engines: plain functions of (density matrix, theta).
 
-Counterpart of dqc_tpu/scf/engine.py (HFEngine; KSEngine comes with the
-grid and XC stack). The engine owns no tensors: `theta` (a dict of precomputed
-integrals + occupation weights) is the only state.
+Counterpart of dqc_tpu/scf/engine.py (HFEngine, KSEngine). The engine owns
+no tensors: `theta` (a dict of precomputed integrals, grid tables and
+occupation weights) is the only state.
 
 State convention: restricted -> dm (nao, nao); polarized -> dm (2, nao, nao).
 
@@ -16,6 +16,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.hopper_jk import ds_jk_kplanes
+from ..xc.integrate import exc_energy, vxc_matrix
 from .eigh import safe_eigh
 from .orth import LARGE
 
@@ -100,3 +101,61 @@ class HFEngine:
         fds = torch.einsum("...ij,...jk,kl->...il", fock, dm, s)
         comm = fds - fds.transpose(-1, -2)
         return torch.einsum("im,...ij,jn->...mn", X, comm, X)
+
+
+class KSEngine(HFEngine):
+    """Restricted/unrestricted Kohn-Sham with LDA/GGA functionals and
+    hybrid exact exchange (B3LYP etc.).
+
+    Extra theta key: the grid tables theta['grid'] (xc/integrate.
+    setup_grid_theta); the XC object is held on the engine. jk_parts is
+    HFEngine's: K comes with J from the one pass of K1 even when the
+    functional has no exact exchange. V_xc and E_xc come from
+    xc/integrate, which takes the kernels K2/K3 for a GGA on the card.
+    Range-separated exchange (exx_lr) is not ported yet."""
+
+    def __init__(self, xc, polarized: bool = False):
+        super().__init__(polarized)
+        self.xc = xc
+
+    def _k_lr(self, theta, dm, i):
+        raise NotImplementedError(
+            "not ported yet: long-range exact exchange of the "
+            "range-separated hybrids (ROADMAP A10)")
+
+    def fock_from_parts(self, dm, j, k, theta):
+        vxc = vxc_matrix(self.xc, dm, theta["grid"], self.polarized,
+                         xcparams=theta.get("xc_params"))
+        f = theta["hcore"] + j
+        hyb = self.xc.exx_fraction
+        if self.polarized:
+            f = f[None] + vxc
+            if hyb != 0.0:
+                f = f - hyb * k
+        else:
+            f = f + vxc
+            if hyb != 0.0:
+                f = f - 0.5 * hyb * k
+        for i, _ in enumerate(self.xc.exx_lr):
+            f = f - self._k_lr(theta, dm, i)
+        return f
+
+    def energy_from_parts(self, dm, j, k, theta, exc=None):
+        """Total energy from precomputed J/K; `exc` is the XC energy when the
+        caller already has it (else one more grid pass computes it)."""
+        dmt = self.dm_tot(dm)
+        e1 = torch.einsum("ij,ij->", theta["hcore"], dmt)
+        ej = 0.5 * torch.einsum("ij,ij->", j, dmt)
+        if exc is None:
+            exc = exc_energy(self.xc, dm, theta["grid"], self.polarized,
+                             xcparams=theta.get("xc_params"))
+        e = e1 + ej + exc + theta["enuc"]
+        hyb = self.xc.exx_fraction
+        if hyb != 0.0:
+            if self.polarized:
+                e = e - 0.5 * hyb * torch.einsum("sij,sij->", k, dm)
+            else:
+                e = e - 0.25 * hyb * torch.einsum("ij,ij->", k, dm)
+        for i, _ in enumerate(self.xc.exx_lr):
+            e = e - self._k_lr(theta, dm, i)
+        return e

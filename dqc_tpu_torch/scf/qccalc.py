@@ -1,14 +1,18 @@
-"""User-facing SCF front end: HF (counterpart of dqc_tpu/scf/qccalc.py).
+"""User-facing SCF front ends: HF and KS (counterpart of
+dqc_tpu/scf/qccalc.py).
 
-HF(mol).run() -> qc; qc.energy(), qc.aodm(), qc.dm2energy(dm).
+HF(mol).run() -> qc; KS(mol, xc="b3lyp").run() -> qc; qc.energy(),
+qc.aodm(), qc.dm2energy(dm).
 
 The JAX package has two routes through run(): one compiled solver for small
 systems and a host-driven ladder of f32 and f64 phases for large ones, made
 for f64 emulation and remote compiles on the TPU. The port has one loop in
 float64 with the meaning of the small-system solver:
   f0 -> diis_solve(step_and_err) -> dm_from_fock(f_star) -> energy.
-KS, periodic systems, density fitting, the variational mode and the
-derivative entry points are not ported yet.
+Both take the dense route (eri_dense in the exchange layout eri_k); KS adds
+the grid tables. Periodic systems, density fitting, range-separated
+hybrids, the variational mode, the SAD guess and the derivative entry
+points are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,7 +25,9 @@ from ..ops.eri import eri_dense, screened_pair_classes
 from ..utils.config import config
 from ..utils.datastruct import SpinParam
 from ..utils.logger import log
-from .engine import HFEngine
+from ..xc import get_xc
+from ..xc.integrate import setup_grid_theta
+from .engine import HFEngine, KSEngine
 from .fixed_point import SCFOptions, diis_solve
 from .hamilton import build_core_theta
 
@@ -97,9 +103,9 @@ class SCF_QCCalc:
                               device=self.mol.device)
             return eng.fock(dm0, theta)
         if opts.guess == "sad":
-            # "sad" is the default of SCFOptions: it runs atomic KS-LDA
-            # calculations, which need the grid and XC stack
-            log("guess='sad' needs the atomic LDA of the grid and XC stack; "
+            # "sad" is the default of SCFOptions: sad_dm0 (atomic KS-LDA
+            # calculations) is not ported yet
+            log("guess='sad': sad_dm0 is not ported yet (the next slice); "
                 "taking the GWH Fock")
         return gwh_fock(theta, eng.polarized)
 
@@ -172,18 +178,11 @@ class SCF_QCCalc:
         return self.mol
 
 
-def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
-       opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
-    """Hartree-Fock front end.
-
-    Every molecule takes the dense route: eri = eri_dense(...) and theta
-    carries its exchange layout eri_k = eri.permute(0,2,1,3), the tensor
-    the JAX package reaches through its blocked route at benzene size
-    (its byte limits are sized for a 16 GB chip). Above
-    config.DENSE_ERI_BYTES_LIMIT the blocked/streamed route is needed."""
+def _dense_route(mol, variational, opts, what):
+    """Refuse what the dense route of the port does not cover yet."""
     if hasattr(mol, "lattice"):
         raise NotImplementedError(
-            "not ported yet: periodic Hartree-Fock (ROADMAP A14)")
+            f"not ported yet: periodic {what} (ROADMAP A14)")
     if variational or (opts is not None and opts.method != "diis"):
         raise NotImplementedError(
             "not ported yet: the variational SCF mode (ROADMAP A13)")
@@ -195,35 +194,84 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
             f"not ported yet: nao = {nao} needs {nao ** 4 * 8} bytes of dense "
             f"ERI, above the {config.DENSE_ERI_BYTES_LIMIT}-byte limit of the "
             "dense route; the blocked/streamed J/K route is ROADMAP A12")
+
+
+def _dense_theta(mol, params, occ, stats, grid=None, family=None):
+    """theta of the dense route: one-electron integrals, eri_k, occupations
+    and, for KS, the grid tables. Stage seconds go into `stats`."""
+    dev = mol.device
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    theta = build_core_theta(mol.meta, params["basis"], params["atomzs"],
+                             efield=params.get("efield"),
+                             efield_grad=params.get("efield_grad"),
+                             efield_grad2=params.get("efield_grad2"),
+                             with_eri=False)
+    sync()
+    t1 = time.perf_counter()
+    eri = eri_dense(mol.meta, params["basis"], screened=_screened(mol))
+    theta["eri_k"] = eri.permute(0, 2, 1, 3).contiguous()
+    del eri
+    theta["occ"] = occ
+    sync()
+    t2 = time.perf_counter()
+    times = {"int1e_s": t1 - t0, "eri_s": t2 - t1}
+    if grid is not None:
+        theta["grid"] = setup_grid_theta(mol.meta, params["basis"], grid,
+                                         family=family)
+        sync()
+        times["grid_s"] = time.perf_counter() - t2
+    if stats is not None:
+        stats.update(times)
+    log("theta built: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()))
+    return theta
+
+
+def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
+       opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
+    """Hartree-Fock front end.
+
+    Every molecule takes the dense route: eri = eri_dense(...) and theta
+    carries its exchange layout eri_k = eri.permute(0,2,1,3), the tensor
+    the JAX package reaches through its blocked route at benzene size
+    (its byte limits are sized for a 16 GB chip). Above
+    config.DENSE_ERI_BYTES_LIMIT the blocked/streamed route is needed."""
+    _dense_route(mol, variational, opts, "Hartree-Fock")
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
-    engine = HFEngine(polarized=polarized)
 
     def build_theta(params, stats=None):
-        dev = mol.device
+        return _dense_theta(mol, params, occ, stats)
 
-        def sync():
-            if dev.type == "cuda":
-                torch.cuda.synchronize(dev)
-        t0 = time.perf_counter()
-        theta = build_core_theta(mol.meta, params["basis"], params["atomzs"],
-                                 efield=params.get("efield"),
-                                 efield_grad=params.get("efield_grad"),
-                                 efield_grad2=params.get("efield_grad2"),
-                                 with_eri=False)
-        sync()
-        t1 = time.perf_counter()
-        scr = _screened(mol)
-        eri = eri_dense(mol.meta, params["basis"], screened=scr)
-        theta["eri_k"] = eri.permute(0, 2, 1, 3).contiguous()
-        del eri
-        theta["occ"] = occ
-        sync()
-        if stats is not None:
-            stats.update(int1e_s=t1 - t0, eri_s=time.perf_counter() - t1)
-        log(f"theta built: 1e {t1 - t0:.2f}s, eri "
-            f"{time.perf_counter() - t1:.2f}s")
-        return theta
+    return SCF_QCCalc(mol, HFEngine(polarized=polarized),
+                      build_theta=build_theta, opts=opts or SCFOptions())
 
-    return SCF_QCCalc(mol, engine, build_theta=build_theta,
-                      opts=opts or SCFOptions())
+
+def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
+       variational: bool = False,
+       opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
+    """Kohn-Sham front end: LDA and GGA functionals, hybrids included
+    (B3LYP, PBE0, ...), restricted or polarized, on the dense route of HF
+    plus the grid tables of mol.setup_grid(). A GGA on the card runs the
+    grid kernels K2/K3 in every Fock build and K1 for J and K."""
+    _dense_route(mol, variational, opts, "Kohn-Sham")
+    xc = get_xc(xc)
+    if xc.exx_lr:
+        raise NotImplementedError(
+            "not ported yet: range-separated hybrids (ROADMAP A10)")
+    if xc.family > 2:
+        raise NotImplementedError(
+            "not ported yet: meta-GGA functionals (ROADMAP A10)")
+    polarized = mol.polarized if restricted is None else (not restricted)
+    occ = _occ_array(mol, polarized)
+    grid = mol.setup_grid()
+
+    def build_theta(params, stats=None):
+        return _dense_theta(mol, params, occ, stats, grid=grid,
+                            family=xc.family)
+
+    return SCF_QCCalc(mol, KSEngine(xc, polarized=polarized),
+                      build_theta=build_theta, opts=opts or SCFOptions())

@@ -3,8 +3,8 @@
 Mol is built on the host. It produces (meta, params) — the static shell
 metadata and the dict of differentiable tensors — plus occupation vectors;
 all physics downstream is plain functions of params. Density fitting, the
-on-disk cache, the integration grid and grid-tabulated external potentials
-are not ported yet and raise NotImplementedError here.
+on-disk cache and grid-tabulated external potentials are not ported yet and
+raise NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 
 from ..api.parser import parse_moldesc
 from ..basis.loader import loadbasis, parse_gaussian94
+from ..grid.factory import get_predefined_grid
 from ..ops.shellstruct import pack_basis
 from ..utils.config import DTYPE, resolve_device
 from ..utils.datastruct import AtomCGTOBasis, CGTOBasis, SpinParam
@@ -87,8 +88,8 @@ class Mol:
             raise ValueError("dqc_tpu_torch computes in torch.float64 only")
         if vext is not None:
             raise NotImplementedError(
-                "not ported yet: Mol(vext=...) needs the grid stack "
-                "(ROADMAP A4/A13)")
+                "not ported yet: Mol(vext=...), the grid-tabulated external "
+                "potential (ROADMAP A13)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.atomzs, self.atompos = parse_moldesc(moldesc, device=self.device)
@@ -134,6 +135,7 @@ class Mol:
         self.vext = vext
         self.orthogonalize_basis = orthogonalize_basis
         self.grid_level = grid
+        self._grid = None
 
     def _t(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -176,8 +178,11 @@ class Mol:
             "not ported yet: the on-disk theta cache (ROADMAP A16)")
 
     def setup_grid(self):
-        raise NotImplementedError(
-            "not ported yet: the integration grid (ROADMAP A4)")
+        """The molecule's integration grid (grid/factory.GridSpec, host
+        numpy, relative to the atoms; built once)."""
+        if self._grid is None:
+            self._grid = get_predefined_grid(self.grid_level, self.zs_int)
+        return self._grid
 
     def get_nuclei_energy(self):
         from ..scf.hamilton import nuclear_repulsion

@@ -1,5 +1,6 @@
 """NaN-safe / differentiable helper ops (counterpart of
-dqc_tpu/utils/safeops.py): occnumber, safepow, safenorm, safe_cdist."""
+dqc_tpu/utils/safeops.py): occnumber, fmax, safepow, safenorm, safe_cdist,
+and the density floors of the XC functionals."""
 from __future__ import annotations
 
 import math
@@ -7,6 +8,10 @@ import math
 import torch
 
 EPS = 1e-15
+# floors of the density and of |grad rho|^2 in the XC functionals (float64;
+# the JAX package raises them for float32, which the port does not use)
+RHO_EPS = 1e-28
+SIG_EPS = 1e-40
 
 
 def occnumber(a, n: int, dtype=torch.float64, device="cpu"):
@@ -29,9 +34,15 @@ def occnumber(a, n: int, dtype=torch.float64, device="cpu"):
     return base + (a_t - nint) / max(n, 1)
 
 
+def fmax(x, c: float):
+    """max(x, c) with the gradient rule of jnp.maximum: at a tie the
+    gradient is shared half and half (torch.clamp would pass all of it)."""
+    return torch.maximum(x, x.new_tensor(c))
+
+
 def safepow(x, p, eps: float = EPS):
     """x**p safe for x ~ 0 with fractional p (gradient-stable)."""
-    return torch.clamp(x, min=eps) ** p
+    return fmax(x, eps) ** p
 
 
 def safenorm(x, axis=-1, eps: float = EPS):

@@ -211,12 +211,13 @@ def test_mol_probes_and_hooks_not_ported_yet():
     with pytest.raises(ValueError):
         dqt.Mol("Xx 0 0 0", device="cpu")
     m = dqt.Mol(H2O, basis="sto-3g", device="cpu")
-    for call in (m.densityfit, m.setup_grid, lambda: m.set_cache("x")):
+    for call in (m.densityfit, lambda: m.set_cache("x")):
         with pytest.raises(NotImplementedError):
             call()
+    assert m.setup_grid() is m.setup_grid()          # built once
     with pytest.raises(NotImplementedError):
         dqt.Mol(H2O, basis="sto-3g", device="cpu", vext=np.zeros(3))
-    for name in ("KS", "Sol", "hessian_pos", "edipole"):
+    for name in ("Sol", "hessian_pos", "edipole"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(dqt, name)
     with pytest.raises(AttributeError):

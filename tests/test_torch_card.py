@@ -15,8 +15,10 @@ import pytest
 import torch
 
 import dqc_tpu_torch as dqt
-from dqc_tpu_torch.ops import hopper_jk
+from dqc_tpu_torch.ops import hopper_jk, hopper_xc
 from dqc_tpu_torch.scf.engine import HFEngine
+from dqc_tpu_torch.xc import getxc
+from dqc_tpu_torch.xc import integrate
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.cuda_card]
 
@@ -94,3 +96,131 @@ def test_engine_jk_parts_goes_through_the_kernel():
     kr = torch.einsum("ijkl,skl->sij", t, dm)
     assert (j - jr).abs().max().item() <= 1e-10 * jr.abs().max().item()
     assert (k - kr).abs().max().item() <= 1e-10 * kr.abs().max().item()
+
+
+# --- K2 / K3: grid density and V_xc assembly of a GGA -----------------------
+
+def _tables(ng, nao, seed):
+    """AO-like tables with a wide spread of magnitudes (the generator of
+    tests/test_pallas_xc.py), on the card."""
+    rng = np.random.default_rng(seed)
+    ao = rng.standard_normal((ng, nao)) * np.exp(rng.uniform(-6, 2, (ng, nao)))
+    ag = rng.standard_normal((3, ng, nao)) * np.exp(
+        rng.uniform(-6, 2, (3, ng, nao)))
+    return (torch.as_tensor(ao, device="cuda"),
+            torch.as_tensor(ag, device="cuda"))
+
+
+def _rel(a, r):
+    return (a - r).abs().max().item() / r.abs().max().item()
+
+
+@pytest.mark.parametrize("ng,nao", [(1, 1), (100, 10), (700, 26),
+                                    (1234, 65), (5000, 150)])
+@pytest.mark.parametrize("symmetric", [True, False])
+def test_dens_kernel_matches_plain_version(ng, nao, symmetric):
+    _need_card()
+    ao, ag = _tables(ng, nao, seed=ng)
+    rng = np.random.default_rng(nao)
+    dm = rng.standard_normal((nao, nao))
+    dm = torch.as_tensor(dm + dm.T if symmetric else dm, device="cuda")
+    before = hopper_xc.ds_dens_gga.launches
+    out = hopper_xc.ds_dens_gga(ao, ag, dm)
+    again = hopper_xc.ds_dens_gga(ao, ag, dm)
+    ref = hopper_xc.ds_dens_reference(ao, ag, dm)
+    torch.cuda.synchronize()
+    assert hopper_xc.ds_dens_gga.launches == before + 2
+    for a, b, r in zip(out, again, ref):
+        assert a.shape == r.shape
+        assert _rel(a, r) <= 1e-10
+        assert torch.equal(a, b)          # no atomics: bit-identical
+
+
+@pytest.mark.parametrize("ng,nao", [(1, 1), (100, 10), (700, 26),
+                                    (1234, 65), (5000, 150)])
+def test_vxc_kernel_matches_plain_version(ng, nao):
+    _need_card()
+    ao, ag = _tables(ng, nao, seed=ng + 1)
+    rng = np.random.default_rng(nao + 1)
+    vr = torch.as_tensor(rng.standard_normal(ng), device="cuda")
+    vg = torch.as_tensor(rng.standard_normal((3, ng)), device="cuda")
+    before = hopper_xc.ds_vxc_gga.launches
+    v = hopper_xc.ds_vxc_gga(ao, ag, vr, vg)
+    again = hopper_xc.ds_vxc_gga(ao, ag, vr, vg)
+    ref = hopper_xc.ds_vxc_reference(ao, ag, vr, vg)
+    torch.cuda.synchronize()
+    assert hopper_xc.ds_vxc_gga.launches == before + 2
+    assert v.shape == (nao, nao)
+    assert _rel(v, ref) <= 1e-10
+    assert torch.equal(v, again)
+
+
+def test_xc_kernels_refuse_autograd_and_bad_inputs():
+    _need_card()
+    ao, ag = _tables(50, 7, seed=3)
+    dm = torch.eye(7, dtype=torch.float64, device="cuda")
+    vr = torch.ones(50, dtype=torch.float64, device="cuda")
+    vg = torch.ones((3, 50), dtype=torch.float64, device="cuda")
+    with pytest.raises(RuntimeError, match="slice 3"):
+        hopper_xc.ds_dens_gga(ao, ag, dm.clone().requires_grad_(True))
+    with pytest.raises(RuntimeError, match="slice 3"):
+        hopper_xc.ds_vxc_gga(ao, ag, vr.clone().requires_grad_(True), vg)
+    with torch.no_grad():
+        hopper_xc.ds_dens_gga(ao, ag, dm.clone().requires_grad_(True))
+    with pytest.raises(TypeError):
+        hopper_xc.ds_dens_gga(ao.float(), ag.float(), dm.float())
+    with pytest.raises(ValueError):
+        hopper_xc.ds_vxc_gga(ao.t(), ag, vr, vg)
+    with pytest.raises(ValueError):
+        hopper_xc.ds_dens_gga(ao, ag, dm.cpu())
+
+
+H2O = "O 0 0 0.2217; H 0 1.4309 -0.8867; H 0 -1.4309 -0.8867"
+
+
+def test_xc_on_the_card_takes_the_kernels_on_a_grid_beyond_the_chunk(
+        monkeypatch):
+    """The CPU's chunk limit bounds the plain versions' intermediates only:
+    on the card a grid longer than it still goes whole through K2 and K3,
+    and a differentiated call raises instead of falling back."""
+    _need_card()
+    mol = dqt.Mol(H2O, basis="3-21G", grid=1)
+    tabs = integrate.setup_grid_theta(mol.meta, mol.params,
+                                      mol.setup_grid(), family=2)
+    ng = tabs["dvol"].shape[0]
+    monkeypatch.setattr(integrate, "_chunk_size", lambda nao: 1000)
+    assert ng > 1000
+    xc = getxc.get_xc("b3lyp")
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((mol.meta.nao,) * 2) * 0.1
+    dm = torch.as_tensor(a @ a.T, device="cuda")
+    hopper_xc.ds_dens_gga.launches = hopper_xc.ds_vxc_gga.launches = 0
+    e, v = integrate.exc_vxc(xc, dm, tabs, False)
+    e2 = integrate.exc_energy(xc, dm, tabs, False)
+    torch.cuda.synchronize()
+    assert hopper_xc.ds_dens_gga.launches == 2
+    assert hopper_xc.ds_vxc_gga.launches == 1
+    cpu = {k: (t.cpu() if torch.is_tensor(t) else t) for k, t in tabs.items()}
+    ec, vc = integrate.exc_vxc(xc, dm.cpu(), cpu, False)   # chunked
+    assert abs(float(e) - float(ec)) <= 1e-11
+    assert abs(float(e2) - float(ec)) <= 1e-11
+    assert (v.cpu() - vc).abs().max().item() <= 1e-11
+    with pytest.raises(RuntimeError, match="slice 3"):
+        integrate.vxc_matrix_ad(xc, dm, tabs, False)
+
+
+def test_ks_runs_on_the_card_through_all_three_kernels():
+    _need_card()
+    h2o = H2O
+    mol = dqt.Mol(h2o, basis="3-21G", grid=1)
+    assert mol.device.type == "cuda"
+    hopper_jk.ds_jk.launches = 0
+    hopper_xc.ds_dens_gga.launches = hopper_xc.ds_vxc_gga.launches = 0
+    qc = dqt.KS(mol, xc="b3lyp").run()
+    n = qc.stats["iterations"]
+    assert hopper_jk.ds_jk.launches >= n + 1
+    assert hopper_xc.ds_dens_gga.launches >= n + 1
+    assert hopper_xc.ds_vxc_gga.launches >= n
+    cpu = dqt.KS(dqt.Mol(h2o, basis="3-21G", grid=1, device="cpu"),
+                 xc="b3lyp").run()
+    assert abs(float(qc.energy()) - float(cpu.energy())) < 1e-10

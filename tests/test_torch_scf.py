@@ -407,10 +407,11 @@ def test_no_silent_cpu():
 
 
 def test_import_leaves_jax_out():
-    """`import dqc_tpu_torch` (and the SCF front end) pulls in neither jax nor
-    the JAX package."""
-    code = ("import sys; import dqc_tpu_torch; "
-            "import dqc_tpu_torch.convert, dqc_tpu_torch.ops.hopper_jk; "
+    """`import dqc_tpu_torch`, and every module of it, pulls in neither jax
+    nor the JAX package."""
+    code = ("import sys, pkgutil, importlib; import dqc_tpu_torch; "
+            "[importlib.import_module(m.name) for m in pkgutil.walk_packages("
+            "dqc_tpu_torch.__path__, 'dqc_tpu_torch.')]; "
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m == 'dqc_tpu' or "
             "m.startswith('dqc_tpu.') or m.startswith('jaxlib')]; "
