@@ -26,6 +26,7 @@ Imports the port only; nothing of JAX and nothing of the JAX package.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -206,6 +207,30 @@ def time_turns(kernel, plain, reps=20):
     return [k1, k2], [p1, p2]
 
 
+def ptxas_summary(log):
+    """Registers, spills and static shared memory of each kernel in a
+    ptxas -v report."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"entry": m.group(1)}
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
 def bound(bytes_moved, flops):
     b = bytes_moved / HBM_BYTES_PER_S * 1e3
     o = flops / FP64_FLOP_PER_S * 1e3
@@ -232,7 +257,9 @@ def main():
         builds = dict(zip(names, pool.map(
             lambda nm: _nvcc.build(nm, force=True), names)))
     emit({"build": {nm: {"source": f"dqc_tpu_torch/csrc/{nm}.cu",
-                         "seconds": b["seconds"], "ptxas": b["log"]}
+                         "seconds": b["seconds"],
+                         "resources": ptxas_summary(b["log"]),
+                         "ptxas": b["log"]}
                     for nm, b in builds.items()},
           "seconds": time.perf_counter() - t_build})
 
@@ -386,6 +413,17 @@ def main():
         vg = torch.as_tensor(rng.standard_normal((3, ng)), device=DEV)
         xc_checks.append(check_vxc(ao, ag, vr, vg, f"tables({ng},{nao})"))
         del ao, ag
+    # K2 alone at a ragged small shape and at one that needs three panels
+    # of dm (nao > 128)
+    for ng, nao in ((33, 7), (3000, 300)):
+        ao, ag = xc_tables(ng, nao, seed=nao)
+        dm = np.random.default_rng(ng).standard_normal((nao, nao))
+        xc_checks.append(check_dens(ao, ag, torch.as_tensor(dm + dm.T,
+                                                             device=DEV),
+                                    f"tables({ng},{nao})"))
+        xc_checks.append(check_dens(ao, ag, torch.as_tensor(dm, device=DEV),
+                                    f"tables({ng},{nao}) nonsym dm"))
+        del ao, ag
     torch.cuda.empty_cache()
     emit({"xc_kernel_checks": xc_checks, "gate_rel": GATE_REL})
 
@@ -474,9 +512,9 @@ def main():
     # 8. times at the main path's shape, in turns; library_ms is PyTorch's
     # own way to compute the same function, timed here and used nowhere
     def dens_library():
-        b = ao @ dm
-        (b * ao).sum(-1)
-        2.0 * (torch.matmul(ag, dm) * ao).sum(-1)
+        c = ao @ dm.T
+        (c * ao).sum(-1)
+        2.0 * (ag * c).sum(-1)
 
     def vxc_library():
         w = vr[:, None] * ao + 2.0 * torch.einsum("dg,dgi->gi", vg, ag)
@@ -493,11 +531,16 @@ def main():
     k3_lib = time_ms(vxc_library, 20)
     nao = mol.meta.nao
     k2_bytes = 8 * (4 * ng * nao + nao * nao + 4 * ng)
-    k2_flops = 8 * ng * nao * nao
+    # one GEMM (C = phi dm^T) and four row dots: the function's own work
+    k2_flops = 2 * ng * nao * nao + 8 * ng * nao
     k3_bytes = 8 * (4 * ng * nao + 4 * ng + nao * nao)
     k3_flops = 2 * ng * nao * nao + 8 * ng * nao
     k2_bound, k2_by = bound(k2_bytes, k2_flops)
     k3_bound, k3_by = bound(k3_bytes, k3_flops)
+    # the launch plan the wrapper chose for K2 at this shape (derived from
+    # the shape and the card, not measured)
+    emit({"ds_dens_gga_plan": hopper_xc.dens_plan(
+        ng, nao, torch.cuda.get_device_properties(0).multi_processor_count)})
     per_it = {"ds_jk": min(k1_ms) * ks_launches["ds_jk"] / (iters + 1),
               "ds_dens_gga": min(k2_ms) * ks_launches["ds_dens_gga"]
               / (iters + 1),

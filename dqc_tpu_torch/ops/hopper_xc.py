@@ -14,7 +14,10 @@ Replaces the TPU kernels dqc_tpu/ops/pallas_xc.py::ds_dens_gga and
 The kernels are csrc/ds_dens_gga.cu and csrc/ds_vxc_gga.cu (CUDA C++ for
 sm_90a; their headers say what bounds them and how they are laid out).
 None of the TPU machinery carries over: no hi/lo f32 planes, no (8,128)
-padding, no masked-iota column select, no limit on nao.
+padding, no masked-iota column select, no limit on nao. ds_dens_gga forms
+one product C = phi dm^T on the f64 tensor cores and the four row dots of C
+in its epilogue; `dens_plan` chooses its tiles, panels, ring depth, shared
+memory and block count on the host.
 
 Dispatch: tensors on the CPU take the plain PyTorch versions
 `ds_dens_reference` / `ds_vxc_reference`; CUDA tensors launch the kernel
@@ -27,17 +30,30 @@ import.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _nvcc
 
 _DENS_SYMBOLS = {"ds_dens_gga_launch":
-                 _nvcc.ptr(5) + _nvcc.ints(2) + [ctypes.c_void_p]}
+                 _nvcc.ptr(5) + _nvcc.ints(7) + [ctypes.c_void_p]}
 _VXC_SYMBOLS = {"ds_vxc_gga_launch":
                 _nvcc.ptr(6) + _nvcc.ints(4) + [ctypes.c_void_p]}
 SOURCES = {"ds_dens_gga": _nvcc.source_path("ds_dens_gga"),
            "ds_vxc_gga": _nvcc.source_path("ds_vxc_gga")}
+
+# ds_dens_gga: grid points per tile, warps per block and the widest panel
+# of dm (kBM, kWarps and kMaxPanel of the kernel: one 8-row n-tile per
+# warp), the doubles of its cross-warp reduction buffer (kRed), the shared
+# memory a block may opt into on an H100, and the multiprocessors of an
+# H100 (one persistent block each)
+D_TILE = 16
+D_WARPS = 16
+D_MAX_PANEL = 8 * D_WARPS
+D_RED_DOUBLES = D_WARPS * 4 * D_TILE
+SMEM_LIMIT = 232_448
+H100_SMS = 132
 
 # ds_vxc_gga: rows/columns of V per block (kTile of the kernel), the number
 # of blocks aimed at (eight per multiprocessor of an H100), and the fewest
@@ -81,15 +97,60 @@ def _check_common(name, tensors):
 
 
 def ds_dens_reference(ao, ao_grad, dm):
-    """Plain PyTorch version of ds_dens_gga: b = ao @ dm, the row dots and
-    the three gradient contractions, as the JAX package's
-    density_from_tables writes them.
+    """Plain PyTorch version of ds_dens_gga in the kernel's algebra: one
+    product c = ao @ dm.T (c[g,i] = sum_j phi_j(g) dm[i,j]), then the row
+    dots of c with phi and with each gradient table; right for any dm.
     Used on CPU tensors and as the oracle of the kernel on the card."""
-    b = ao @ dm
-    rho = torch.einsum("gi,gi->g", b, ao)
-    gb = torch.einsum("dgi,ij->dgj", ao_grad, dm)
-    gdot = 2.0 * torch.einsum("dgi,gi->dg", gb, ao)
+    c = ao @ dm.T
+    rho = (c * ao).sum(-1)
+    gdot = 2.0 * (ao_grad * c).sum(-1)
     return rho, gdot
+
+
+def dens_stage_doubles(panel: int, nao: int) -> int:
+    """Doubles of one ring stage of the ds_dens_gga kernel (its
+    stage_doubles): D_TILE rows of the phi columns of the block (row stride
+    panel + 4) and of the panel's columns of the three gradient tables, and
+    of phi when there is more than one panel (row stride panel or panel + 8,
+    whichever is 8 mod 16)."""
+    e_stride = panel if panel % 16 == 8 else panel + 8
+    e_tables = 3 if nao <= panel else 4
+    return D_TILE * (panel + 4 + e_tables * e_stride)
+
+
+def dens_plan(ng: int, nao: int, sms: int = H100_SMS) -> dict:
+    """Launch plan of the ds_dens_gga kernel for ng points and nao AOs.
+
+    dm is cut into panels of `panel` rows (a multiple of 8, at most 128) and
+    column blocks of the same width; each warp keeps its 8 rows of a panel
+    in registers. Three ring stages (dens_stage_doubles) where they fit,
+    else two. One block per multiprocessor, no more blocks than tiles (the
+    layout the kernel checks)."""
+    if ng <= 0 or nao <= 0:
+        raise ValueError(f"dens_plan: ng = {ng} and nao = {nao} must be > 0")
+    panel = min(D_MAX_PANEL, -(-nao // 8) * 8)
+    for stages in (3, 2):
+        smem = 8 * (stages * dens_stage_doubles(panel, nao) + D_RED_DOUBLES)
+        if smem <= SMEM_LIMIT:
+            break
+    else:   # unreachable while D_MAX_PANEL and D_TILE stay as they are
+        raise ValueError(f"dens_plan: no ring fits in {SMEM_LIMIT} bytes")
+    tiles = -(-ng // D_TILE)
+    return {"tile_points": D_TILE, "panel": panel,
+            "panels": -(-nao // panel), "stages": stages,
+            "smem_bytes": smem, "blocks": max(1, min(tiles, sms)),
+            "tiles": tiles}
+
+
+@functools.lru_cache(maxsize=64)
+def _dens_launch_plan(ng: int, nao: int, device_index: int) -> tuple:
+    """(tile_points, panel, stages, smem_bytes, blocks) of dens_plan for
+    the card `device_index`, kept per shape: the SCF calls the kernel at
+    one shape every iteration."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    p = dens_plan(ng, nao, sms)
+    return (p["tile_points"], p["panel"], p["stages"], p["smem_bytes"],
+            p["blocks"])
 
 
 def ds_vxc_reference(ao, ao_grad, vrho, vgrad):
@@ -113,16 +174,17 @@ def ds_dens_gga(ao, ao_grad, dm):
     if not _check_common("ds_dens_gga", (ao, ao_grad, dm)):
         return ds_dens_reference(ao, ao_grad, dm)
     lib = _nvcc.load("ds_dens_gga", _DENS_SYMBOLS)
+    plan = _dens_launch_plan(ng, nao, ao.device.index)
     with torch.cuda.device(ao.device):
         rho = torch.empty((ng,), dtype=ao.dtype, device=ao.device)
         gdot = torch.empty((3, ng), dtype=ao.dtype, device=ao.device)
         stream = torch.cuda.current_stream(ao.device).cuda_stream
-        err = lib.ds_dens_gga_launch(ao.data_ptr(), ao_grad.data_ptr(),
-                                     dm.data_ptr(), rho.data_ptr(),
-                                     gdot.data_ptr(), ng, nao, stream)
+        err = lib.ds_dens_gga_launch(
+            ao.data_ptr(), ao_grad.data_ptr(), dm.data_ptr(), rho.data_ptr(),
+            gdot.data_ptr(), ng, nao, *plan, stream)
     if err != 0:
         raise RuntimeError(f"ds_dens_gga kernel launch failed: cudaError "
-                           f"{err} (ng={ng}, nao={nao})")
+                           f"{err} (ng={ng}, nao={nao}, plan={plan})")
     ds_dens_gga.launches += 1
     return rho, gdot
 

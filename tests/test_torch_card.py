@@ -116,7 +116,8 @@ def _rel(a, r):
 
 
 @pytest.mark.parametrize("ng,nao", [(1, 1), (100, 10), (700, 26),
-                                    (1234, 65), (5000, 150)])
+                                    (1234, 65), (5000, 150), (33, 7),
+                                    (3000, 300)])
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_dens_kernel_matches_plain_version(ng, nao, symmetric):
     _need_card()

@@ -152,12 +152,19 @@ def _tables(ng, nao, seed):
     return ao, ag
 
 
-@pytest.mark.parametrize("ng,nao", [(100, 10), (700, 26)])
-def test_dens_plain_version_matches_jax(ng, nao):
+@pytest.mark.parametrize(
+    "ng,nao,symmetric",
+    [(100, 10, True), (700, 26, True), (100, 10, False), (700, 26, False)],
+    ids=["100-10", "700-26", "100-10-nonsym", "700-26-nonsym"])
+def test_dens_plain_version_matches_jax(ng, nao, symmetric):
+    """The one-GEMM plain version (c = ao @ dm.T, then row dots) against
+    the JAX package's four-contraction oracle, also for a dm that is not
+    symmetric."""
     ao, ag = _tables(ng, nao, seed=3)
     rng = np.random.default_rng(4)
     dm = rng.standard_normal((nao, nao))
-    dm = dm + dm.T
+    if symmetric:
+        dm = dm + dm.T
     rho, gdot = hopper_xc.ds_dens_gga(torch.as_tensor(ao),
                                       torch.as_tensor(ag), torch.as_tensor(dm))
     planes = pallas_xc.grid_planes(jnp.asarray(ao), jnp.asarray(ag))
@@ -169,6 +176,36 @@ def test_dens_plain_version_matches_jax(ng, nao):
                                    interpret=True)
     _close(rho, kr, 1e-5)
     _close(gdot, kg, 1e-5)
+
+
+@pytest.mark.parametrize("nao", [1, 7, 114, 150, 300, 512])
+def test_dens_plan_fits_the_card(nao):
+    """The launch plan of K2 stays inside a block's shared memory, its
+    panels cover nao exactly, and it launches at least one block."""
+    ng = 78144 if nao == 114 else 1000
+    plan = hopper_xc.dens_plan(ng, nao)
+    assert 0 < plan["smem_bytes"] <= 232_448
+    w = plan["panel"]
+    assert w % 8 == 0 and 0 < w <= 128
+    widths = [min(w, nao - p * w) for p in range(plan["panels"])]
+    assert all(x > 0 for x in widths) and sum(widths) == nao
+    stage = hopper_xc.dens_stage_doubles(w, nao)
+    assert plan["smem_bytes"] == 8 * (plan["stages"] * stage
+                                      + hopper_xc.D_RED_DOUBLES)
+    assert plan["stages"] in (2, 3)
+    if plan["stages"] == 2:   # three stages only where they do not fit
+        assert 8 * (3 * stage + hopper_xc.D_RED_DOUBLES) > 232_448
+    assert 1 <= plan["blocks"] <= min(132, plan["tiles"])
+    assert plan["tiles"] * plan["tile_points"] >= ng
+    assert hopper_xc.dens_plan(1, nao)["blocks"] == 1
+    if nao <= 128:       # one panel: dm loaded once a block, each table read once
+        assert plan["panels"] == 1 and w >= nao
+
+
+@pytest.mark.parametrize("ng,nao", [(0, 7), (10, 0), (-1, 5)])
+def test_dens_plan_refuses_empty_shapes(ng, nao):
+    with pytest.raises(ValueError, match="must be > 0"):
+        hopper_xc.dens_plan(ng, nao)
 
 
 @pytest.mark.parametrize("ng,nao", [(100, 10), (700, 26)])
