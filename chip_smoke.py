@@ -16,8 +16,10 @@ Without a CUDA device it fails at once and prints no result.
 One JSON object per line: `device`, the card's name and power limit as
 nvidia-smi prints them, `build`, `kernel_checks`, `main_path` (HF),
 `eri_dense`, `eigh`, `xc_kernel_checks`, `main_path_ks`, `ks_kernel_checks`,
-`ks_iteration_ms`, `ks_iteration_profile` (one KS iteration under
-torch.profiler: device time by kernel, the card's idle share), `small`,
+`ds_dens_gga_plan` and `ds_jk_plan` (the launch plans of K2 and K1 at the
+main path's shapes), `ks_iteration_ms`, `ks_iteration_profile` (one KS
+iteration under torch.profiler: device time by kernel, the card's idle
+share), `small`,
 `kernels`, and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -41,7 +43,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import dqc_tpu_torch as dq                                    # noqa: E402
-from dqc_tpu_torch.ops import _nvcc, hopper_xc                # noqa: E402
+from dqc_tpu_torch.ops import _nvcc, hopper_jk, hopper_xc     # noqa: E402
 from dqc_tpu_torch.ops.hopper_jk import ds_jk, ds_jk_reference  # noqa: E402
 from dqc_tpu_torch.ops.hopper_xc import (                     # noqa: E402
     ds_dens_gga, ds_dens_reference, ds_vxc_gga, ds_vxc_reference)
@@ -107,6 +109,17 @@ def eri_like(n, seed):
     t = t + t.permute(0, 1, 3, 2)
     t = t + t.permute(2, 3, 0, 1)
     return t.contiguous()
+
+
+def card_like(n, seed):
+    """Seeded (n,n,n,n) tensor with an ERI's spread of magnitudes and no
+    symmetry, made on the card from a torch.Generator (numpy on the host
+    is too slow at these sizes: 4 GB at n = 150, 6.8 GB at n = 171)."""
+    g = torch.Generator(device=DEV)
+    g.manual_seed(seed)
+    t = torch.randn((n,) * 4, generator=g, dtype=torch.float64, device=DEV)
+    scale = torch.empty_like(t).uniform_(-8.0, 1.0, generator=g)
+    return t.mul_(scale.exp_())
 
 
 def sym_dm(n, seed):
@@ -275,7 +288,19 @@ def main():
             dmx = torch.as_tensor(rng.standard_normal((n, n)), device=DEV)
             checks.append(check_kernel(T, dmx, f"eri_like({n}) nonsym dm"))
         del T
-    torch.cuda.empty_cache()
+    # the sizes past benzene's, made on the card: dm no longer fits in
+    # shared memory beside the ring (jk_plan's dm_shared = 0), so its rows
+    # are streamed with T's
+    for n in (150, 171):
+        T = card_like(n, seed=n)
+        rng = np.random.default_rng(n)
+        dmx = rng.standard_normal((n, n))
+        checks.append(check_kernel(T, torch.as_tensor(dmx + dmx.T, device=DEV),
+                                   f"card_like({n})"))
+        checks.append(check_kernel(T, torch.as_tensor(dmx, device=DEV),
+                                   f"card_like({n}) nonsym dm"))
+        del T
+        torch.cuda.empty_cache()
     emit({"kernel_checks": checks, "gate_rel": GATE_REL})
 
     # 4. the main path: HF on benzene/def2-SVP
@@ -537,10 +562,11 @@ def main():
     k3_flops = 2 * ng * nao * nao + 8 * ng * nao
     k2_bound, k2_by = bound(k2_bytes, k2_flops)
     k3_bound, k3_by = bound(k3_bytes, k3_flops)
-    # the launch plan the wrapper chose for K2 at this shape (derived from
-    # the shape and the card, not measured)
-    emit({"ds_dens_gga_plan": hopper_xc.dens_plan(
-        ng, nao, torch.cuda.get_device_properties(0).multi_processor_count)})
+    # the launch plans the wrappers chose for K2 and K1 at these shapes
+    # (derived from the shapes and the card, not measured)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    emit({"ds_dens_gga_plan": hopper_xc.dens_plan(ng, nao, sms)})
+    emit({"ds_jk_plan": {"n": nao, **hopper_jk.jk_plan(nao, sms)}})
     per_it = {"ds_jk": min(k1_ms) * ks_launches["ds_jk"] / (iters + 1),
               "ds_dens_gga": min(k2_ms) * ks_launches["ds_dens_gga"]
               / (iters + 1),

@@ -7,45 +7,132 @@
 //   out_trail[i,a] = sum_{b,l} T[i,a,b,l] * dm[b,l]
 //   out_mid[i,b]   = sum_{a,l} T[i,a,b,l] * dm[a,l]
 //
-// With T = eri_k (eri_k[i,j,k,l] = (ik|jl)) these are K and J.
+// With T = eri_k (eri_k[i,j,k,l] = (ik|jl)) these are K and J. T need not
+// have any symmetry, nor dm; n is anything from 1 to 256 (64-bit offsets;
+// the dense route stops at n = 215).
 //
 // Bound: bytes. T is read once (n^4 * 8 B; 1,351,168,128 B at n = 114) for
-// 4 n^4 float64 operations, about half an operation per byte, far below
-// what the card can do per byte it moves. At the 3.35 TB/s of the H100 SXM
-// data sheet the least time at n = 114 is about 0.40 ms.
+// 4 n^4 float64 operations, half an operation per byte: the f64 units would
+// be the limit only above about 60 TB/s. At the 3.35 TB/s of the H100 SXM
+// data sheet the least time at n = 114 is about 0.40 ms. So the whole job is
+// to stream T once at the HBM rate and to do nothing per byte that costs
+// more than the byte.
 //
-// Design. The TPU kernel splits f64 into hi/lo f32 planes and does
-// double-single arithmetic because that chip has no f64 units, pads to its
-// (8,128) tiles and carries an accumulator along a sequential grid axis.
-// None of that is kept: the f64 tensor is the input, arithmetic is f64 FMA,
-// nothing is padded in memory and no block depends on another.
-//   * grid (chunks of a, i). A block walks the contiguous (b,l) tiles
-//     T[i,a,:,:] of its chunk of a. One warp takes a row b at a time, its
-//     lanes stride over l, so a warp reads consecutive doubles. T is loaded
-//     with the streaming hint (it is used once); dm stays in L1/L2.
-//   * per element one FMA into the thread's tile sum (trailing contraction)
-//     and one into the row sum (middle contraction). The row sum is reduced
-//     inside the warp and added to mid_acc[b] in shared memory: a row b is
-//     always handled by the same warp, so this needs no atomics. The tile
-//     sum is reduced over the block in a fixed order and out_trail[i,a] is
-//     written by exactly one block.
-//   * the middle contraction also sums over a, which spans blocks: every
-//     block writes its partial row to mid_part[i, chunk, :], and a second
-//     small kernel adds the chunks in index order.
-// No floating-point atomics anywhere, and every reduction has a fixed
-// order, so the result is bit-identical from run to run.
-// Ragged n (114 is not a multiple of 32) is handled by the loop bounds.
+// Design. The n^2 tiles T[i,a,:,:] lie in memory one after the other, in
+// (i,a) order, and each is n rows of n doubles.
+//   * Persistent grid, one block per multiprocessor: block q owns the
+//     contiguous tile range [q * tiles_per_block, ...), so the last wave is
+//     short by less than one tile.
+//   * Warp specialised. One producer thread streams the block's range
+//     through a ring of shared-memory stages with 1-D bulk copies
+//     (cp.async.bulk, completing on an mbarrier per stage); a stage is
+//     stage_rows rows of one tile, about 32 KB, and several are in flight
+//     per multiprocessor. 16 consumer warps read the stage from shared
+//     memory and release it on a second mbarrier. A bulk copy needs 16-byte
+//     aligned addresses and sizes: where a stage does not start or end on
+//     16 bytes (odd n, or T 8 bytes into its storage) the copy takes the
+//     aligned span around it and the consumers start one double in. The
+//     span never leaves the 16-byte granules that hold T's own elements, so
+//     nothing is padded and no page outside T is touched.
+//   * Row b of every tile belongs to consumer warp b mod 16 (stage_rows is
+//     a multiple of 16), as its m-th row (b = warp + 16 m); lane takes the
+//     columns l = lane + 32 j. Per element two FMAs, one into the lane's
+//     running K sum (dm[b,l]) and one into jacc[m], the lane's J sum of row
+//     b (dm[a,l], which the lane holds in registers for the whole tile). m
+//     and j run over fixed bounds (16 and 8, hence n <= 256), so jacc and
+//     dm's row a stay in registers. At the end of each tile the warp reduces
+//     its K sum with shuffles into its slot k_part[tile, warp]; at the end
+//     of each i segment it reduces each jacc[m] into the segment's slot in
+//     mid_part. No block barrier per tile, no shuffle per row.
+//   * dm: kept in shared memory when it fits beside three stages
+//     (dm_shared; n <= 128 on an H100), read from device memory once per
+//     block. For a larger n each stage also carries the same rows of dm,
+//     copied in bulk beside T's rows (dm stays in L2; its rows go to shared
+//     memory with the stage). Either way a consumer reads dm[b,l] from
+//     shared memory, never through L1/L2 on the per-element path.
+//   * A second small kernel adds, per tile, the 16 warp slots of K in warp
+//     order and, per i, the J slots of the blocks that share i in block
+//     order.
+// No floating-point atomics, and every sum has a fixed order, so two
+// launches give the same bits.
+//
+// The host side (ops/hopper_jk.py::jk_plan) decides the layout: blocks,
+// tiles per block, stage rows, stages, the stage stride, whether dm is
+// shared, the J slots per block and every shared-memory offset. The launch
+// checks the plan against what this kernel needs (its consumer warps and
+// largest ring and n, alignments, no overlap, the card's 227 KB) and
+// refuses one that does not fit; it does not lay anything out itself.
 //
 // Plain C interface for ctypes: the caller allocates everything, passes
 // device pointers and the stream; nothing synchronises here.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kConsumerWarps = 16;
+constexpr int kThreads = 32 * (kConsumerWarps + 1);   // + one producer warp
+constexpr int kMaxStages = 6;
+// lane takes columns l = lane + 32 j (j < kMaxCols), warp takes rows
+// b = warp + 16 m (m < kMaxRows): n up to 256
+constexpr int kMaxCols = 8;
+constexpr int kMaxRows = 16;
+constexpr int kMaxN = 32 * kMaxCols;
+static_assert(kConsumerWarps * kMaxRows == kMaxN, "rows and columns");
+constexpr int kFoldThreads = 128;
+constexpr long kSmemLimit = 232448;    // opt-in shared memory of an H100 block
+
+__host__ __device__ __forceinline__ long lmin(long x, long y) {
+  return x < y ? x : y;
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(smem_u32(bar)), "r"(parity) : "memory");
+  } while (!done);
+}
+
+// bytes (a multiple of 16) from the 16-byte aligned global address src to
+// the 16-byte aligned shared address dst; completes on bar's transaction
+// count
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n"
+      :: "r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
 
 __device__ __forceinline__ double warp_sum(double v) {
 #pragma unroll
@@ -54,93 +141,303 @@ __device__ __forceinline__ double warp_sum(double v) {
   return v;
 }
 
-__global__ void __launch_bounds__(kThreads)
-ds_jk_pass(const double* __restrict__ T, const double* __restrict__ dm,
-           double* __restrict__ out_trail, double* __restrict__ mid_part,
-           int n, int a_chunk, int n_chunks) {
-  extern __shared__ double smem[];
-  double* mid_acc = smem;          // n accumulators of the middle contraction
-  double* warp_part = smem + n;    // kWarps partial tile sums
-
-  const int i = blockIdx.y;
-  const int chunk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  for (int b = tid; b < n; b += kThreads) mid_acc[b] = 0.0;
-  __syncthreads();
-
-  const size_t n2 = (size_t)n * (size_t)n;
-  const int a0 = chunk * a_chunk;
-  const int a1 = min(a0 + a_chunk, n);
-  for (int a = a0; a < a1; ++a) {
-    const double* tile = T + ((size_t)i * n + a) * n2;
-    const double* dm_a = dm + (size_t)a * n;
-    double trail = 0.0;
-    for (int b = warp; b < n; b += kWarps) {
-      const double* row = tile + (size_t)b * n;
-      const double* dm_b = dm + (size_t)b * n;
-      double mid = 0.0;
-#pragma unroll 4
-      for (int l = lane; l < n; l += 32) {
-        const double t = __ldcs(row + l);
-        trail = fma(t, __ldg(dm_b + l), trail);
-        mid = fma(t, __ldg(dm_a + l), mid);
-      }
-      mid = warp_sum(mid);
-      if (lane == 0) mid_acc[b] += mid;   // row b belongs to this warp only
-    }
-    trail = warp_sum(trail);
-    if (lane == 0) warp_part[warp] = trail;
-    __syncthreads();
-    if (tid == 0) {
-      double s = 0.0;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) s += warp_part[w];
-      out_trail[(size_t)i * n + a] = s;
-    }
-    __syncthreads();
-  }
-
-  double* part = mid_part + ((size_t)i * n_chunks + chunk) * n;
-  for (int b = tid; b < n; b += kThreads) part[b] = mid_acc[b];
+template <bool kDmShared>
+__device__ __forceinline__ double dm_at(const double* p) {
+  if (kDmShared) return *p;
+  return __ldg(p);
 }
 
-__global__ void __launch_bounds__(kThreads)
-ds_jk_fold(const double* __restrict__ mid_part, double* __restrict__ out_mid,
-           int n, int n_chunks) {
-  const int i = blockIdx.x;
-  const double* part = mid_part + (size_t)i * n_chunks * n;
-  for (int b = threadIdx.x; b < n; b += kThreads) {
-    double s = 0.0;
-    for (int c = 0; c < n_chunks; ++c) s += part[(size_t)c * n + b];
-    out_mid[(size_t)i * n + b] = s;
+// dm[a, lane + 32 j] for every j, zero past n
+template <bool kDmShared>
+__device__ __forceinline__ void load_row(double (&out)[kMaxCols],
+                                         const double* row, int n, int lane) {
+#pragma unroll
+  for (int j = 0; j < kMaxCols; ++j) {
+    const int l = lane + 32 * j;
+    out[j] = l < n ? dm_at<kDmShared>(row + l) : 0.0;
   }
+}
+
+// the aligned span of the bulk copy of count doubles at p: its start, its
+// bytes, and where p lies in it (0 or 1 double in)
+struct Span {
+  uintptr_t lo;
+  uint32_t bytes;
+  int lead;
+};
+
+__device__ __forceinline__ Span span_of(const double* p, long count) {
+  const uintptr_t a = (uintptr_t)p;
+  const uintptr_t lo = a & ~(uintptr_t)15;
+  const uintptr_t hi = (a + (uintptr_t)count * sizeof(double) + 15) &
+                       ~(uintptr_t)15;
+  return {lo, (uint32_t)(hi - lo), (int)((a - lo) >> 3)};
+}
+
+template <bool kDmShared>
+__global__ void __launch_bounds__(kThreads, 1)
+ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
+             double* __restrict__ k_part, double* __restrict__ mid_part,
+             int n, int tiles_per_block, int stage_rows, int stages,
+             int stage_doubles, int islots, int dm_offset, int bar_offset) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  double* ring = reinterpret_cast<double*>(smem);
+  double* dm_s = reinterpret_cast<double*>(smem + dm_offset);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + bar_offset);
+  uint64_t* empty = full + stages;
+  // without dm in shared memory a stage holds its T rows, then the same
+  // rows of dm
+  const int dm_half = stage_doubles / 2;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const long n2 = (long)n * n;
+  const long t0 = (long)blockIdx.x * tiles_per_block;
+  const long t1 = lmin(t0 + tiles_per_block, n2);
+  const long n_stages = (t1 - t0) * ((n + stage_rows - 1) / stage_rows);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == kConsumerWarps) {            // the producer
+    if (lane == 0) {
+      int s = 0, b0 = 0;
+      uint32_t round = 0;
+      long t = t0;
+      for (long k = 0; k < n_stages; ++k) {
+        if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
+        const int g = (int)lmin(stage_rows, n - b0);
+        const Span ts = span_of(T + t * n2 + (long)b0 * n, (long)g * n);
+        double* dst = ring + (long)s * stage_doubles;
+        if (kDmShared) {
+          mbar_expect_tx(&full[s], ts.bytes);
+          bulk_load(dst, (const void*)ts.lo, ts.bytes, &full[s]);
+        } else {
+          const Span ds = span_of(dm + (long)b0 * n, (long)g * n);
+          mbar_expect_tx(&full[s], ts.bytes + ds.bytes);
+          bulk_load(dst, (const void*)ts.lo, ts.bytes, &full[s]);
+          bulk_load(dst + dm_half, (const void*)ds.lo, ds.bytes, &full[s]);
+        }
+        if (++s == stages) { s = 0; ++round; }
+        b0 += stage_rows;
+        if (b0 >= n) { b0 = 0; ++t; }
+      }
+    }
+    return;
+  }
+
+  // consumers: dm into shared memory (when it fits) while the producer's
+  // first copies are already in flight
+  if (kDmShared) {
+    for (long x = threadIdx.x; x < n2; x += 32 * kConsumerWarps)
+      dm_s[x] = dm[x];
+    asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kConsumerWarps) : "memory");
+  }
+
+  // row b = warp + kConsumerWarps * m of every tile is this warp's; lane
+  // takes columns l = lane + 32 * j. jacc[m]: the lane's J sum of row b
+  // over the tiles of the current i; dma[j]: dm[a, l] of the current tile.
+  double jacc[kMaxRows];
+  double dma[kMaxCols];
+#pragma unroll
+  for (int m = 0; m < kMaxRows; ++m) jacc[m] = 0.0;
+  double kacc = 0.0;
+  long t = t0;
+  long i = t0 / n;
+  int a = (int)(t0 - i * n);
+  const long i_first = i;
+  int s = 0, b0 = 0;
+  uint32_t phase = 0;
+  load_row<kDmShared>(dma, (kDmShared ? dm_s : dm) + (long)a * n, n, lane);
+  for (long k = 0; k < n_stages; ++k) {
+    const int g = (int)lmin(stage_rows, n - b0);
+    const double* stage = ring + (long)s * stage_doubles;
+    const double* rows = stage + span_of(T + t * n2 + (long)b0 * n, 0).lead;
+    const double* dmb =
+        kDmShared ? dm_s + (long)b0 * n
+                  : stage + dm_half + span_of(dm + (long)b0 * n, 0).lead;
+    const int m0 = b0 / kConsumerWarps;
+    mbar_wait(&full[s], phase);
+#pragma unroll
+    for (int m = 0; m < kMaxRows; ++m) {
+      const int r = (m - m0) * kConsumerWarps + warp;   // row in the stage
+      if (m >= m0 && r < g) {
+        const double* x_row = rows + (long)r * n;
+        const double* d_row = dmb + (long)r * n;
+#pragma unroll
+        for (int j = 0; j < kMaxCols; ++j) {
+          const int l = lane + 32 * j;
+          if (l < n) {
+            const double x = x_row[l];
+            kacc = fma(x, d_row[l], kacc);
+            jacc[m] = fma(x, dma[j], jacc[m]);
+          }
+        }
+      }
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+    if (++s == stages) { s = 0; phase ^= 1; }
+    b0 += stage_rows;
+    if (b0 < n) continue;
+    // tile t ends here: the warp's K slot
+    const double kw = warp_sum(kacc);
+    kacc = 0.0;
+    if (lane == 0) k_part[t * kConsumerWarps + warp] = kw;
+    if (a == n - 1 || t == t1 - 1) {        // and so does an i segment
+      double* part =
+          mid_part + ((long)blockIdx.x * islots + (i - i_first)) * n;
+#pragma unroll
+      for (int m = 0; m < kMaxRows; ++m) {
+        const int b = warp + kConsumerWarps * m;
+        if (b < n) {                          // warp-uniform
+          const double v = warp_sum(jacc[m]);
+          if (lane == 0) part[b] = v;
+        }
+        jacc[m] = 0.0;
+      }
+    }
+    b0 = 0;
+    ++t;
+    if (++a == n) { a = 0; ++i; }
+    if (t < t1)
+      load_row<kDmShared>(dma, (kDmShared ? dm_s : dm) + (long)a * n, n, lane);
+  }
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+ds_jk_fold(const double* __restrict__ k_part,
+           const double* __restrict__ mid_part, double* __restrict__ out_trail,
+           double* __restrict__ out_mid, int n, int tiles_per_block,
+           int islots) {
+  const long i = blockIdx.x;
+  for (int a = threadIdx.x; a < n; a += kFoldThreads) {
+    const double* kp = k_part + (i * n + a) * kConsumerWarps;
+    double s = 0.0;
+#pragma unroll
+    for (int w = 0; w < kConsumerWarps; ++w) s += kp[w];
+    out_trail[i * n + a] = s;
+  }
+  // the blocks whose tile ranges meet row i of tiles, in block order
+  const long q_lo = i * n / tiles_per_block;
+  const long q_hi = ((i + 1) * n - 1) / tiles_per_block;
+  for (int b = threadIdx.x; b < n; b += kFoldThreads) {
+    double s = 0.0;
+    for (long q = q_lo; q <= q_hi; ++q) {
+      const long slot = i - q * tiles_per_block / n;
+      s += mid_part[(q * islots + slot) * n + b];
+    }
+    out_mid[i * n + b] = s;
+  }
+}
+
+constexpr int kMaxDevices = 64;
+
+// Dynamic shared memory above 48 KB only after opting in, which holds for
+// the current device and every later launch there; so it is asked once per
+// device and variant, for the largest plan seen so far (under a lock:
+// ctypes calls in without the GIL).
+template <bool kDmShared>
+cudaError_t opt_in(int smem_bytes) {
+  static std::mutex mu;
+  static int granted[kMaxDevices] = {};
+  std::lock_guard<std::mutex> lock(mu);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (granted[dev] >= smem_bytes) return cudaSuccess;
+  e = cudaFuncSetAttribute(ds_jk_stream<kDmShared>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           smem_bytes);
+  if (e == cudaSuccess) granted[dev] = smem_bytes;
+  return e;
+}
+
+// Does the plan fit this kernel? Checks, lays out nothing.
+bool plan_fits(int n, int blocks, int tiles_per_block, int stage_rows,
+               int stages, int stage_doubles, int dm_shared, int islots,
+               int dm_offset, int bar_offset, int smem_bytes) {
+  if (n <= 0 || n > kMaxN || blocks <= 0 || tiles_per_block <= 0 ||
+      islots <= 0 || (dm_shared != 0 && dm_shared != 1))
+    return false;
+  const long n2 = (long)n * n;
+  if ((long)blocks * tiles_per_block < n2 ||
+      (long)(blocks - 1) * tiles_per_block >= n2)
+    return false;
+  // a stage: its rows of T plus a double on each side for the aligned span,
+  // and without dm in shared memory the same again for dm's rows
+  const long rows = lmin(stage_rows, n) * n + 2;
+  const long part = dm_shared ? stage_doubles : stage_doubles / 2;
+  if (stage_rows <= 0 || stage_rows % kConsumerWarps != 0 || stages < 2 ||
+      stages > kMaxStages || part % 16 != 0 || part < rows ||
+      (!dm_shared && stage_doubles % 32 != 0))
+    return false;
+  for (long q = 0; q < blocks; ++q) {   // a J slot for every i a block meets
+    const long t0 = q * tiles_per_block;
+    const long t1 = lmin(t0 + tiles_per_block, n2);
+    if ((t1 - 1) / n - t0 / n >= islots) return false;
+  }
+  const long ring_end = 8L * stage_doubles * stages;
+  if (dm_offset < ring_end || dm_offset % 16 != 0) return false;
+  const long dm_end = (long)dm_offset + (dm_shared ? 8 * n2 : 0);
+  if (bar_offset < dm_end || bar_offset % 8 != 0) return false;
+  return (long)bar_offset + 16L * stages <= smem_bytes &&
+         smem_bytes <= kSmemLimit;
+}
+
+template <bool kDmShared>
+int launch(const double* T, const double* dm, double* k_part, double* mid_part,
+           int n, int blocks, int tiles_per_block, int stage_rows, int stages,
+           int stage_doubles, int islots, int dm_offset, int bar_offset,
+           int smem_bytes, cudaStream_t stream) {
+  const cudaError_t e = opt_in<kDmShared>(smem_bytes);
+  if (e != cudaSuccess) return (int)e;
+  ds_jk_stream<kDmShared><<<blocks, kThreads, smem_bytes, stream>>>(
+      T, dm, k_part, mid_part, n, tiles_per_block, stage_rows, stages,
+      stage_doubles, islots, dm_offset, bar_offset);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Returns 0 or the cudaError_t of the launch that was refused.
-// T (n,n,n,n), dm (n,n), out_trail (n,n), out_mid (n,n),
-// mid_part (n, n_chunks, n) scratch; all contiguous float64 on the device of
-// `stream`; n_chunks * a_chunk >= n.
+// Returns 0 or a cudaError_t: of a launch that was refused, or
+// cudaErrorInvalidValue for a plan that does not fit this kernel.
+// T (n,n,n,n), dm (n,n), out_trail (n,n), out_mid (n,n); scratch k_part
+// (n*n, 16) and mid_part (blocks, islots, n); all contiguous float64 on the
+// device of `stream`. The plan (blocks ... smem_bytes) comes from
+// hopper_jk.jk_plan.
 extern "C" int ds_jk_launch(const void* T, const void* dm, void* out_trail,
-                            void* out_mid, void* mid_part, int n, int a_chunk,
-                            int n_chunks, void* stream) {
-  if (n <= 0 || a_chunk <= 0 || n_chunks <= 0 ||
-      (long long)a_chunk * n_chunks < n)
+                            void* out_mid, void* k_part, void* mid_part, int n,
+                            int blocks, int tiles_per_block, int stage_rows,
+                            int stages, int stage_doubles, int dm_shared,
+                            int islots, int dm_offset, int bar_offset,
+                            int smem_bytes, void* stream) {
+  if (!plan_fits(n, blocks, tiles_per_block, stage_rows, stages,
+                 stage_doubles, dm_shared, islots, dm_offset, bar_offset,
+                 smem_bytes))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)(n + kWarps) * sizeof(double);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  const double* t = (const double*)T;
+  const double* d = (const double*)dm;
+  double* kp = (double*)k_part;
+  double* mp = (double*)mid_part;
   cudaStream_t s = (cudaStream_t)stream;
-  dim3 grid((unsigned)n_chunks, (unsigned)n);
-  ds_jk_pass<<<grid, kThreads, smem, s>>>(
-      (const double*)T, (const double*)dm, (double*)out_trail,
-      (double*)mid_part, n, a_chunk, n_chunks);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  ds_jk_fold<<<(unsigned)n, kThreads, 0, s>>>(
-      (const double*)mid_part, (double*)out_mid, n, n_chunks);
+  const int err =
+      dm_shared ? launch<true>(t, d, kp, mp, n, blocks, tiles_per_block,
+                               stage_rows, stages, stage_doubles, islots,
+                               dm_offset, bar_offset, smem_bytes, s)
+                : launch<false>(t, d, kp, mp, n, blocks, tiles_per_block,
+                                stage_rows, stages, stage_doubles, islots,
+                                dm_offset, bar_offset, smem_bytes, s);
+  if (err != 0) return err;
+  ds_jk_fold<<<(unsigned)n, kFoldThreads, 0, s>>>(
+      kp, mp, (double*)out_trail, (double*)out_mid, n, tiles_per_block,
+      islots);
   return (int)cudaGetLastError();
 }

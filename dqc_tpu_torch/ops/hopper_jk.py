@@ -9,9 +9,10 @@ ds_jk_kplanes). One pass over a dense 4-index float64 tensor T forms
 For T = eri_k (eri_k[i,j,k,l] = (ik|jl)): (out_trail, out_mid) = (K, J).
 
 The kernel is csrc/ds_jk.cu (CUDA C++ for sm_90a; its header says what it
-is bounded by — bytes: T is read once — and how it is laid out). There are
+is bounded by — bytes: T is read once — and how it streams T). There are
 no hi/lo f32 planes here: the card has f64 arithmetic and the f64 tensor is
-the input.
+the input. `jk_plan` decides the launch and the shared-memory layout on the
+host; the kernel checks the plan and refuses one that does not fit it.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 `ds_jk_reference`; a CUDA tensor launches the kernel or raises. Nothing
@@ -26,13 +27,34 @@ CUDA-only is touched at import.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _nvcc
 
 SOURCE = _nvcc.source_path("ds_jk")
-_SYMBOLS = {"ds_jk_launch": _nvcc.ptr(5) + _nvcc.ints(3) + [ctypes.c_void_p]}
+
+# the kernel's consumer warps (kConsumerWarps: row b of every tile belongs
+# to warp b mod JK_WARPS), its deepest ring (kMaxStages) and its largest n
+# (kMaxN: lane takes columns lane + 32 j, j < 8); the fewest stages the plan
+# takes, and the bytes of T one stage aims at (below about 28 KB the
+# per-stage work shows; see PERF.md); the shared memory a block may opt
+# into on an H100 and the multiprocessors of an H100
+JK_WARPS = 16
+JK_MAX_STAGES = 6
+JK_MIN_STAGES = 3
+JK_MAX_N = 256
+JK_STAGE_BYTES = 32 * 1024
+SMEM_LIMIT = 232_448
+H100_SMS = 132
+
+# the launch arguments that jk_plan decides, in the kernel's order
+PLAN_KEYS = ("blocks", "tiles_per_block", "stage_rows", "stages",
+             "stage_doubles", "dm_shared", "islots", "dm_offset",
+             "bar_offset", "smem_bytes")
+_SYMBOLS = {"ds_jk_launch": _nvcc.ptr(6) + _nvcc.ints(1 + len(PLAN_KEYS))
+            + [ctypes.c_void_p]}
 
 
 def build(force: bool = False) -> dict:
@@ -45,13 +67,60 @@ def _load():
     return _nvcc.load("ds_jk", _SYMBOLS)
 
 
-def pick_chunks(n: int):
-    """(a_chunk, n_chunks): how the axis `a` is cut into blocks. About 2048
-    blocks (n * n_chunks) keep all multiprocessors of the card busy with
-    several blocks each; a chunk never has less than one row."""
-    want = max(1, min(n, -(-2048 // n)))
-    a_chunk = -(-n // want)
-    return a_chunk, -(-n // a_chunk)
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def jk_plan(n: int, sms: int = H100_SMS) -> dict:
+    """Launch plan and shared-memory layout of the ds_jk kernel for T
+    (n,n,n,n) on a card with `sms` multiprocessors.
+
+    One block per multiprocessor, each owning `tiles_per_block` consecutive
+    tiles T[i,a,:,:] (the last block fewer). A ring stage carries
+    `stage_rows` rows of one tile (a multiple of JK_WARPS, about
+    JK_STAGE_BYTES) plus one double on each side for the 16-byte aligned
+    span of the bulk copy, rounded to 128 bytes. dm stays in shared memory
+    (`dm_shared`) when it fits beside JK_MIN_STAGES stages; otherwise each
+    stage also carries the same rows of dm, in its second half
+    (`stage_doubles` is then twice the rows' room). As many stages as fit,
+    at most JK_MAX_STAGES. `islots`: the J slots a block needs, one per i
+    its tiles meet. Shared memory, in bytes from 0: the ring, dm at
+    `dm_offset` (if shared), two mbarriers per stage at `bar_offset`;
+    `smem_bytes` in all. The kernel checks this plan and lays out nothing
+    itself."""
+    if not 1 <= n <= JK_MAX_N or sms < 1:
+        raise ValueError(f"jk_plan: n = {n} must be in [1, {JK_MAX_N}] and "
+                         f"sms = {sms} >= 1")
+    tiles = n * n
+    tiles_per_block = -(-tiles // sms)
+    blocks = -(-tiles // tiles_per_block)
+    stage_rows = min(_round_up(n, JK_WARPS), JK_WARPS * max(
+        1, round(JK_STAGE_BYTES / (JK_WARPS * 8 * n))))
+    rows_doubles = _round_up(min(stage_rows, n) * n + 2, 16)
+    for dm_shared in (1, 0):
+        stage_doubles = rows_doubles * (2 - dm_shared)
+        dm_bytes = dm_shared * _round_up(8 * tiles, 16)
+        stages = min(JK_MAX_STAGES,
+                     (SMEM_LIMIT - dm_bytes) // (8 * stage_doubles + 16))
+        if stages >= JK_MIN_STAGES:
+            break
+    islots = max((min(t0 + tiles_per_block, tiles) - 1) // n - t0 // n + 1
+                 for t0 in range(0, tiles, tiles_per_block))
+    dm_offset = 8 * stage_doubles * stages
+    bar_offset = dm_offset + dm_bytes
+    return {"blocks": blocks, "tiles_per_block": tiles_per_block,
+            "stage_rows": stage_rows, "stages": stages,
+            "stage_doubles": stage_doubles, "dm_shared": dm_shared,
+            "islots": islots, "dm_offset": dm_offset,
+            "bar_offset": bar_offset, "smem_bytes": bar_offset + 16 * stages}
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_plan(n: int, device_index: int) -> dict:
+    """jk_plan for the card `device_index`, kept per n: the SCF calls the
+    kernel at one n every iteration."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return jk_plan(n, sms)
 
 
 def _check(T, dm):
@@ -92,20 +161,22 @@ def ds_jk(T, dm):
         raise ValueError("ds_jk needs contiguous T and dm on the card")
     lib = _load()
     n = T.shape[0]
-    a_chunk, n_chunks = pick_chunks(n)
+    plan = _launch_plan(n, T.device.index)
     with torch.cuda.device(T.device):
         out_trail = torch.empty((n, n), dtype=T.dtype, device=T.device)
         out_mid = torch.empty((n, n), dtype=T.dtype, device=T.device)
-        mid_part = torch.empty((n, n_chunks, n), dtype=T.dtype,
-                               device=T.device)
+        k_part = torch.empty((n * n, JK_WARPS), dtype=T.dtype,
+                             device=T.device)
+        mid_part = torch.empty((plan["blocks"], plan["islots"], n),
+                               dtype=T.dtype, device=T.device)
         stream = torch.cuda.current_stream(T.device).cuda_stream
         err = lib.ds_jk_launch(T.data_ptr(), dm.data_ptr(),
                                out_trail.data_ptr(), out_mid.data_ptr(),
-                               mid_part.data_ptr(), n, a_chunk, n_chunks,
-                               stream)
+                               k_part.data_ptr(), mid_part.data_ptr(), n,
+                               *(plan[k] for k in PLAN_KEYS), stream)
     if err != 0:
         raise RuntimeError(f"ds_jk kernel launch failed: cudaError {err} "
-                           f"(n={n}, a_chunk={a_chunk}, n_chunks={n_chunks})")
+                           f"(n={n}, plan={plan})")
     ds_jk.launches += 1
     return out_trail, out_mid
 

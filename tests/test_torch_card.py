@@ -38,11 +38,25 @@ def _eri_like(n, seed):
     return torch.as_tensor(np.ascontiguousarray(t), device="cuda")
 
 
-@pytest.mark.parametrize("n", [1, 7, 33, 66])
+def _card_like(n, seed):
+    """Seeded (n,n,n,n) tensor with an ERI's spread of magnitudes and no
+    symmetry, made on the card (numpy on the host is too slow at n >= 114:
+    4 GB at n = 150, 6.8 GB at n = 171)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    t = torch.randn((n,) * 4, generator=g, dtype=torch.float64,
+                    device="cuda")
+    scale = torch.empty_like(t).uniform_(-8.0, 1.0, generator=g)
+    return t.mul_(scale.exp_())
+
+
+@pytest.mark.parametrize("n", [1, 7, 33, 66, 114, 150, 171])
 @pytest.mark.parametrize("symmetric", [True, False])
 def test_kernel_matches_plain_version(n, symmetric):
+    """Both layouts of the kernel's plan: dm kept in shared memory (n up to
+    128 on an H100) and dm's rows streamed with T's (n = 150, 171)."""
     _need_card()
-    t = _eri_like(n, seed=n)
+    t = _eri_like(n, seed=n) if n <= 66 else _card_like(n, seed=n)
     rng = np.random.default_rng(3)
     dm = rng.standard_normal((n, n))
     dm = torch.as_tensor(dm + dm.T if symmetric else dm, device="cuda")
@@ -55,6 +69,26 @@ def test_kernel_matches_plain_version(n, symmetric):
     for a, b, r in zip(out, again, ref):
         assert (a - r).abs().max().item() <= 1e-10 * r.abs().max().item()
         assert torch.equal(a, b)          # no atomics: bit-identical
+    del t, ref
+    torch.cuda.empty_cache()
+
+
+def test_kernel_takes_t_that_does_not_start_on_16_bytes():
+    """A contiguous view 8 bytes into its storage: the bulk copies take the
+    aligned span around each stage (odd n, so rows do not start on 16
+    bytes either)."""
+    _need_card()
+    n = 33
+    base = torch.as_tensor(np.random.default_rng(9).standard_normal(
+        n ** 4 + 1), device="cuda")
+    t = base[1:].view(n, n, n, n)
+    assert t.is_contiguous() and t.data_ptr() % 16 == 8
+    dm = torch.as_tensor(np.random.default_rng(10).standard_normal((n, n)),
+                         device="cuda")
+    out = hopper_jk.ds_jk(t, dm)
+    ref = hopper_jk.ds_jk_reference(t, dm)
+    for a, r in zip(out, ref):
+        assert (a - r).abs().max().item() <= 1e-10 * r.abs().max().item()
 
 
 def test_kernel_refuses_non_contiguous_and_wrong_dtype():

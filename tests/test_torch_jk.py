@@ -135,11 +135,118 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(bad):
         hopper_jk.ds_jk(t, dm)
 
 
-@pytest.mark.parametrize("n", [1, 7, 33, 114, 150, 211])
-def test_pick_chunks_covers_the_axis(n):
-    a_chunk, n_chunks = hopper_jk.pick_chunks(n)
-    assert a_chunk >= 1 and 1 <= n_chunks <= n
-    assert a_chunk * n_chunks >= n > a_chunk * (n_chunks - 1)
+SMEM_LIMIT = 232_448      # shared memory one block may opt into on an H100
+
+
+def _stage_starts(n, plan):
+    """(tile, first row, rows) of every ring stage of every block, in the
+    order the kernel streams them (tiles in order, rows in order)."""
+    spt = -(-n // plan["stage_rows"])
+    t = np.repeat(np.arange(n * n), spt)
+    b0 = np.tile(np.arange(spt) * plan["stage_rows"], n * n)
+    return t, b0, np.minimum(plan["stage_rows"], n - b0)
+
+
+@pytest.mark.parametrize("sms", [1, 114, 132])
+@pytest.mark.parametrize("n", range(1, 216))
+def test_jk_plan_fits_the_card(n, sms):
+    """K1's launch plan: the blocks' tile ranges cover every tile (i,a)
+    once and in order, the layout fits a block's shared memory without
+    overlaps, and every bulk copy (T's rows, and dm's rows when dm is not
+    kept in shared memory) is a 16-byte aligned span that fits its stage,
+    whether T and dm start on 16 bytes or 8 bytes past."""
+    p = hopper_jk.jk_plan(n, sms)
+    tiles, tpb = n * n, p["tiles_per_block"]
+    starts = [q * tpb for q in range(p["blocks"])]
+    ends = [min(s + tpb, tiles) for s in starts]
+    assert 1 <= p["blocks"] <= sms and starts[0] == 0 and ends[-1] == tiles
+    assert all(s < e for s, e in zip(starts, ends))
+    assert all(e == s for e, s in zip(ends[:-1], starts[1:]))
+    # one J slot per i a block meets
+    assert p["islots"] == max((e - 1) // n - s // n + 1
+                              for s, e in zip(starts, ends))
+    # shared memory: ring, dm (if kept there), two mbarriers per stage
+    assert p["stage_rows"] % hopper_jk.JK_WARPS == 0
+    assert 2 <= p["stages"] <= hopper_jk.JK_MAX_STAGES
+    assert p["dm_offset"] == 8 * p["stage_doubles"] * p["stages"]
+    dm_bytes = -(-8 * tiles // 16) * 16
+    assert p["bar_offset"] == p["dm_offset"] + p["dm_shared"] * dm_bytes
+    assert p["smem_bytes"] == p["bar_offset"] + 16 * p["stages"] <= SMEM_LIMIT
+    part = p["stage_doubles"] // (2 - p["dm_shared"])
+    assert part % 16 == 0 and p["stage_doubles"] % 16 == 0   # 128-byte stages
+    # dm stays in shared memory exactly when it leaves room for the fewest
+    # stages of T's rows the plan takes
+    fits = dm_bytes + hopper_jk.JK_MIN_STAGES * (8 * part + 16) <= SMEM_LIMIT
+    assert p["dm_shared"] == fits
+    assert p["stages"] >= hopper_jk.JK_MIN_STAGES or not fits
+    # every bulk copy: aligned start and size, inside its part of a stage
+    t, b0, g = _stage_starts(n, p)
+    for base in (0, 8):
+        for first in (8 * (t * n * n + b0 * n) + base, 8 * (b0 * n) + base):
+            lo = first & ~15
+            hi = (first + 8 * g * n + 15) & ~15
+            assert np.all((hi - lo) % 16 == 0) and np.all(lo % 16 == 0)
+            assert np.all(hi - lo <= 8 * part)
+            assert np.all(first - lo <= 8)   # the kernel's lead: 0 or 1
+
+
+@pytest.mark.parametrize("n,sms", [(0, 132), (257, 132), (7, 0)])
+def test_jk_plan_refuses(n, sms):
+    with pytest.raises(ValueError, match="jk_plan"):
+        hopper_jk.jk_plan(n, sms)
+
+
+def _replay(t, dm, plan):
+    """The kernel's partition in torch: every block's tiles in order, K
+    per tile as one slot per warp (rows b = warp mod 16), J per i segment as
+    one slot per block; then the fold, slots in index order."""
+    n = dm.shape[0]
+    w = hopper_jk.JK_WARPS
+    tpb, islots = plan["tiles_per_block"], plan["islots"]
+    tiles = t.reshape(n * n, n, n)
+    k_part = torch.zeros((n * n, w), dtype=t.dtype)
+    mid_part = torch.full((plan["blocks"], islots, n), float("nan"),
+                          dtype=t.dtype)
+    rows_of = [torch.tensor(range(wp, n, w), dtype=torch.long)
+               for wp in range(w)]
+    for q in range(plan["blocks"]):
+        t0, t1 = q * tpb, min((q + 1) * tpb, n * n)
+        jacc = torch.zeros(n, dtype=t.dtype)
+        for tt in range(t0, t1):
+            i, a = divmod(tt, n)
+            prod = tiles[tt] * dm                  # T[i,a,b,l] dm[b,l]
+            for wp in range(w):
+                k_part[tt, wp] = prod[rows_of[wp]].sum()
+            jacc += tiles[tt] @ dm[a]              # sum_l T[i,a,b,l] dm[a,l]
+            if a == n - 1 or tt == t1 - 1:
+                mid_part[q, i - t0 // n] = jacc
+                jacc = torch.zeros(n, dtype=t.dtype)
+    out_trail = torch.zeros((n, n), dtype=t.dtype)
+    out_mid = torch.zeros((n, n), dtype=t.dtype)
+    for i in range(n):
+        for a in range(n):
+            for wp in range(w):
+                out_trail[i, a] += k_part[i * n + a, wp]
+        for q in range(i * n // tpb, ((i + 1) * n - 1) // tpb + 1):
+            out_mid[i] += mid_part[q, i - q * tpb // n]
+    assert not torch.isnan(out_mid).any()   # every slot read was written
+    return out_trail, out_mid
+
+
+@pytest.mark.parametrize("sms", [132, 5])
+@pytest.mark.parametrize("symmetric", [True, False])
+@pytest.mark.parametrize("n", [1, 7, 10, 33])
+def test_plan_replay_matches_reference(n, symmetric, sms):
+    """Partial J rows per i segment and K slots per warp, folded in index
+    order as the kernel's second pass does, give the plain version's J and
+    K: the plan's partition loses and repeats nothing."""
+    t = torch.as_tensor(_eri_like(n, seed=n + 40))
+    dm = torch.as_tensor(_dm(n, 7, symmetric))
+    plan = hopper_jk.jk_plan(n, sms)
+    trail, mid = _replay(t, dm, plan)
+    ref_trail, ref_mid = hopper_jk.ds_jk_reference(t, dm)
+    assert _rel(trail, ref_trail.numpy()) <= 1e-12
+    assert _rel(mid, ref_mid.numpy()) <= 1e-12
 
 
 def test_module_imports_nothing_of_cuda_at_import():
