@@ -16,11 +16,11 @@ Without a CUDA device it fails at once and prints no result.
 One JSON object per line: `device`, the card's name and power limit as
 nvidia-smi prints them, `build`, `kernel_checks`, `main_path` (HF),
 `eri_dense`, `eigh`, `xc_kernel_checks`, `main_path_ks`, `ks_kernel_checks`,
-`ds_dens_gga_plan` and `ds_jk_plan` (the launch plans of K2 and K1 at the
-main path's shapes), `ks_iteration_ms`, `ks_iteration_profile` (one KS
-iteration under torch.profiler: device time by kernel, the card's idle
-share), `small`,
-`kernels`, and as the last line
+`ds_dens_gga_plan`, `ds_vxc_gga_plan` and `ds_jk_plan` (the launch plans
+of K2, K3 and K1 at the main path's shapes), `ks_iteration_ms`,
+`ks_iteration_profile` (one KS iteration under torch.profiler: device time
+by kernel, the card's idle share), `small`, `kernels` (K3's row also has
+its registers and spills from this run's ptxas report), and as the last line
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports the port only; nothing of JAX and nothing of the JAX package.
@@ -438,16 +438,21 @@ def main():
         vg = torch.as_tensor(rng.standard_normal((3, ng)), device=DEV)
         xc_checks.append(check_vxc(ao, ag, vr, vg, f"tables({ng},{nao})"))
         del ao, ag
-    # K2 alone at a ragged small shape and at one that needs three panels
-    # of dm (nao > 128)
+    # K2 and K3 at a ragged small shape (ng nao odd: ao_grad's tables do not
+    # start on 16 bytes) and at one that needs three panels of dm and of V
+    # (nao > 128)
     for ng, nao in ((33, 7), (3000, 300)):
         ao, ag = xc_tables(ng, nao, seed=nao)
-        dm = np.random.default_rng(ng).standard_normal((nao, nao))
+        rng = np.random.default_rng(ng)
+        dm = rng.standard_normal((nao, nao))
         xc_checks.append(check_dens(ao, ag, torch.as_tensor(dm + dm.T,
                                                              device=DEV),
                                     f"tables({ng},{nao})"))
         xc_checks.append(check_dens(ao, ag, torch.as_tensor(dm, device=DEV),
                                     f"tables({ng},{nao}) nonsym dm"))
+        vr = torch.as_tensor(rng.standard_normal(ng), device=DEV)
+        vg = torch.as_tensor(rng.standard_normal((3, ng)), device=DEV)
+        xc_checks.append(check_vxc(ao, ag, vr, vg, f"tables({ng},{nao})"))
         del ao, ag
     torch.cuda.empty_cache()
     emit({"xc_kernel_checks": xc_checks, "gate_rel": GATE_REL})
@@ -562,10 +567,11 @@ def main():
     k3_flops = 2 * ng * nao * nao + 8 * ng * nao
     k2_bound, k2_by = bound(k2_bytes, k2_flops)
     k3_bound, k3_by = bound(k3_bytes, k3_flops)
-    # the launch plans the wrappers chose for K2 and K1 at these shapes
+    # the launch plans the wrappers chose for K2, K3 and K1 at these shapes
     # (derived from the shapes and the card, not measured)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     emit({"ds_dens_gga_plan": hopper_xc.dens_plan(ng, nao, sms)})
+    emit({"ds_vxc_gga_plan": hopper_xc.vxc_plan(ng, nao, sms)})
     emit({"ds_jk_plan": {"n": nao, **hopper_jk.jk_plan(nao, sms)}})
     per_it = {"ds_jk": min(k1_ms) * ks_launches["ds_jk"] / (iters + 1),
               "ds_dens_gga": min(k2_ms) * ks_launches["ds_dens_gga"]
@@ -678,6 +684,7 @@ def main():
         "gate_rel": GATE_REL,
         "gbytes_per_s": k3_bytes / (min(k3_ms) * 1e-3) / 1e9,
         "gflop_per_s": k3_flops / (min(k3_ms) * 1e-3) / 1e9,
+        "resources": ptxas_summary(builds["ds_vxc_gga"]["log"]),
         "card": smi_line,
     }], "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

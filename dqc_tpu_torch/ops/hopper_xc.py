@@ -17,7 +17,11 @@ None of the TPU machinery carries over: no hi/lo f32 planes, no (8,128)
 padding, no masked-iota column select, no limit on nao. ds_dens_gga forms
 one product C = phi dm^T on the f64 tensor cores and the four row dots of C
 in its epilogue; `dens_plan` chooses its tiles, panels, ring depth, shared
-memory and block count on the host.
+memory and block count on the host. ds_vxc_gga streams the tables once by
+bulk copies, forms WT in shared memory from them and the potentials, and
+one product V = WT^T phi on the f64 tensor cores, one partial V per block
+added in a fixed order by a second kernel; `vxc_plan` chooses its panels,
+ring depth, shared memory and block count.
 
 Dispatch: tensors on the CPU take the plain PyTorch versions
 `ds_dens_reference` / `ds_vxc_reference`; CUDA tensors launch the kernel
@@ -39,7 +43,7 @@ from . import _nvcc
 _DENS_SYMBOLS = {"ds_dens_gga_launch":
                  _nvcc.ptr(5) + _nvcc.ints(7) + [ctypes.c_void_p]}
 _VXC_SYMBOLS = {"ds_vxc_gga_launch":
-                _nvcc.ptr(6) + _nvcc.ints(4) + [ctypes.c_void_p]}
+                _nvcc.ptr(6) + _nvcc.ints(7) + [ctypes.c_void_p]}
 SOURCES = {"ds_dens_gga": _nvcc.source_path("ds_dens_gga"),
            "ds_vxc_gga": _nvcc.source_path("ds_vxc_gga")}
 
@@ -55,12 +59,14 @@ D_RED_DOUBLES = D_WARPS * 4 * D_TILE
 SMEM_LIMIT = 232_448
 H100_SMS = 132
 
-# ds_vxc_gga: rows/columns of V per block (kTile of the kernel), the number
-# of blocks aimed at (eight per multiprocessor of an H100), and the fewest
-# grid points a slice of the split grid axis gets
-V_TILE = 64
-V_TARGET_BLOCKS = 8 * 132
-V_MIN_POINTS = 64
+# ds_vxc_gga: grid points per tile (kBK of the kernel: the K of its GEMM),
+# the widest panel of V (kMaxPanel: 4 x 4 warps of 32 x 32 each), the
+# doubles of one potential's span in a stage (kVSlot) and the groups of
+# consecutive blocks whose partials the fold adds first (kFoldGroups)
+V_POINTS = 16
+V_MAX_PANEL = 128
+V_POT_SLOT = V_POINTS + 2
+V_FOLD_GROUPS = 8
 
 
 def build(force: bool = False) -> dict:
@@ -192,14 +198,58 @@ def ds_dens_gga(ao, ao_grad, dm):
 ds_dens_gga.launches = 0   # launches of the CUDA kernel (never the plain version)
 
 
-def pick_split(ng: int, nao: int):
-    """(points per slice, number of slices) of the grid axis for
-    ds_vxc_gga: about V_TARGET_BLOCKS blocks over the tiles of V, and no
-    slice shorter than V_MIN_POINTS points."""
-    tiles = (-(-nao // V_TILE)) ** 2
-    want = max(1, min(-(-ng // V_MIN_POINTS), -(-V_TARGET_BLOCKS // tiles)))
-    pts = -(-ng // want)
-    return pts, -(-ng // pts)
+def vxc_smem_bytes(nao: int, panel: int, panels: int, stages: int) -> int:
+    """Dynamic shared memory of the ds_vxc_gga kernel (its smem_bytes_of):
+    the operands WT and phi, V_POINTS rows of panel + 4 doubles each; the
+    ring of stages, each with one slot per table (phi, dphi_x,y,z of panel
+    p, and phi of panel q when V has more than one panel: one span of
+    V_POINTS rows and its lead with one panel, else V_POINTS row segments
+    of panel + 2 doubles) and 4 potential spans of V_POT_SLOT doubles; one
+    8-byte mbarrier per stage."""
+    if panels == 1:
+        tables, slot = 4, V_POINTS * nao + 2
+    else:
+        tables, slot = 5, V_POINTS * (panel + 2)
+    stage = tables * slot + 4 * V_POT_SLOT
+    return 8 * (2 * V_POINTS * (panel + 4) + stages * stage) + 8 * stages
+
+
+def vxc_plan(ng: int, nao: int, sms: int = H100_SMS) -> dict:
+    """Launch plan of the ds_vxc_gga kernel for ng points and nao AOs.
+
+    V is cut into `panels` x `panels` sub-blocks of `panel` rows and
+    columns (a multiple of 16, at most V_MAX_PANEL; as few panels as that
+    allows, as even as 16 allows), one for nao <= 128. Three ring stages
+    (vxc_smem_bytes) where they fit, else two. One block per multiprocessor
+    and no more blocks than tiles; block b takes the tiles
+    [b * tiles // blocks, (b + 1) * tiles // blocks) and writes one partial
+    V (the layout the kernel checks)."""
+    if ng <= 0 or nao <= 0 or sms <= 0:
+        raise ValueError(f"vxc_plan: ng = {ng}, nao = {nao} and sms = {sms} "
+                         "must be > 0")
+    n = -(-nao // V_MAX_PANEL)
+    panel = -(-(-(-nao // n)) // 16) * 16
+    panels = -(-nao // panel)
+    for stages in (3, 2):
+        smem = vxc_smem_bytes(nao, panel, panels, stages)
+        if smem <= SMEM_LIMIT:
+            break
+    else:   # unreachable while V_MAX_PANEL and V_POINTS stay as they are
+        raise ValueError(f"vxc_plan: no ring fits in {SMEM_LIMIT} bytes")
+    tiles = -(-ng // V_POINTS)
+    return {"tile_points": V_POINTS, "panel": panel, "panels": panels,
+            "sub_blocks": panels * panels, "stages": stages,
+            "smem_bytes": smem, "blocks": min(tiles, sms), "tiles": tiles}
+
+
+@functools.lru_cache(maxsize=64)
+def _vxc_launch_plan(ng: int, nao: int, device_index: int) -> tuple:
+    """(tile_points, panel, stages, smem_bytes, blocks) of vxc_plan for the
+    card `device_index`, kept per shape like _dens_launch_plan."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    p = vxc_plan(ng, nao, sms)
+    return (p["tile_points"], p["panel"], p["stages"], p["smem_bytes"],
+            p["blocks"])
 
 
 def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
@@ -217,19 +267,20 @@ def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
     if not _check_common("ds_vxc_gga", (ao, ao_grad, vrho, vgrad)):
         return ds_vxc_reference(ao, ao_grad, vrho, vgrad)
     lib = _nvcc.load("ds_vxc_gga", _VXC_SYMBOLS)
-    pts, n_split = pick_split(ng, nao)
+    plan = _vxc_launch_plan(ng, nao, ao.device.index)
     with torch.cuda.device(ao.device):
         v = torch.empty((nao, nao), dtype=ao.dtype, device=ao.device)
-        part = torch.empty((n_split, nao, nao), dtype=ao.dtype,
+        # one partial V per block, added in a fixed order by the fold
+        part = torch.empty((plan[-1], nao, nao), dtype=ao.dtype,
                            device=ao.device)
         stream = torch.cuda.current_stream(ao.device).cuda_stream
         err = lib.ds_vxc_gga_launch(ao.data_ptr(), ao_grad.data_ptr(),
                                     vrho.data_ptr(), vgrad.data_ptr(),
                                     v.data_ptr(), part.data_ptr(), ng, nao,
-                                    pts, n_split, stream)
+                                    *plan, stream)
     if err != 0:
         raise RuntimeError(f"ds_vxc_gga kernel launch failed: cudaError "
-                           f"{err} (ng={ng}, nao={nao}, n_split={n_split})")
+                           f"{err} (ng={ng}, nao={nao}, plan={plan})")
     ds_vxc_gga.launches += 1
     return v
 

@@ -172,8 +172,12 @@ def test_dens_kernel_matches_plain_version(ng, nao, symmetric):
 
 
 @pytest.mark.parametrize("ng,nao", [(1, 1), (100, 10), (700, 26),
-                                    (1234, 65), (5000, 150)])
+                                    (1234, 65), (5000, 150), (33, 7),
+                                    (3000, 300)])
 def test_vxc_kernel_matches_plain_version(ng, nao):
+    """One sub-block of V (nao <= 128), two (150) and three panels a side
+    (300); (33, 7) has ng nao odd, so ao_grad's tables do not start on 16
+    bytes."""
     _need_card()
     ao, ag = _tables(ng, nao, seed=ng + 1)
     rng = np.random.default_rng(nao + 1)
@@ -186,6 +190,29 @@ def test_vxc_kernel_matches_plain_version(ng, nao):
     torch.cuda.synchronize()
     assert hopper_xc.ds_vxc_gga.launches == before + 2
     assert v.shape == (nao, nao)
+    assert _rel(v, ref) <= 1e-10
+    assert torch.equal(v, again)
+
+
+def test_vxc_kernel_takes_tables_that_do_not_start_on_16_bytes():
+    """Contiguous views 8 bytes into their storage (nao even, so only the
+    storage offset keeps the kernel off its 16-byte copies)."""
+    _need_card()
+    ng, nao = 700, 26
+    rng = np.random.default_rng(12)
+
+    def shifted(*shape):
+        base = torch.as_tensor(rng.standard_normal(int(np.prod(shape)) + 1),
+                               device="cuda")
+        t = base[1:].view(*shape)
+        assert t.is_contiguous() and t.data_ptr() % 16 == 8
+        return t
+    ao, ag, vr, vg = shifted(ng, nao), shifted(3, ng, nao), shifted(ng), \
+        shifted(3, ng)
+    v = hopper_xc.ds_vxc_gga(ao, ag, vr, vg)
+    again = hopper_xc.ds_vxc_gga(ao, ag, vr, vg)
+    ref = hopper_xc.ds_vxc_reference(ao, ag, vr, vg)
+    torch.cuda.synchronize()
     assert _rel(v, ref) <= 1e-10
     assert torch.equal(v, again)
 

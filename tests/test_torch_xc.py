@@ -224,6 +224,97 @@ def test_vxc_plain_version_matches_jax(ng, nao):
            1e-5)
 
 
+@pytest.mark.parametrize("nao", [1, 7, 114, 150, 215, 300])
+def test_vxc_plan_fits_the_card(nao):
+    """The launch plan of K3 stays inside a block's shared memory, its
+    sub-blocks cover V exactly (one for nao <= 128, so each table is read
+    once), and it launches between one block and one per multiprocessor."""
+    ng = 78144 if nao == 114 else 1000
+    plan = hopper_xc.vxc_plan(ng, nao)
+    assert 0 < plan["smem_bytes"] <= 232_448
+    w, n = plan["panel"], plan["panels"]
+    assert w % 16 == 0 and 0 < w <= 128
+    widths = [min(w, nao - p * w) for p in range(n)]
+    assert all(x > 0 for x in widths) and sum(widths) == nao
+    assert plan["sub_blocks"] == n * n
+    assert plan["smem_bytes"] == hopper_xc.vxc_smem_bytes(nao, w, n,
+                                                          plan["stages"])
+    assert plan["stages"] in (2, 3)
+    if plan["stages"] == 2:   # three stages only where they do not fit
+        assert hopper_xc.vxc_smem_bytes(nao, w, n, 3) > 232_448
+    assert 1 <= plan["blocks"] <= min(132, plan["tiles"])
+    assert plan["tiles"] * plan["tile_points"] >= ng
+    assert (plan["tiles"] - 1) * plan["tile_points"] < ng
+    assert hopper_xc.vxc_plan(1, nao)["blocks"] == 1
+    if nao <= 128:
+        assert n == 1 and w >= nao
+
+
+@pytest.mark.parametrize("ng,nao,sms", [(0, 7, 132), (10, 0, 132),
+                                        (-1, 5, 132), (10, 5, 0)])
+def test_vxc_plan_refuses_empty_shapes(ng, nao, sms):
+    with pytest.raises(ValueError, match="must be > 0"):
+        hopper_xc.vxc_plan(ng, nao, sms)
+
+
+def _vxc_replay(ao, ag, vr, vg, plan):
+    """The kernel's partition in torch: block b sums its tiles
+    [b * tiles // blocks, (b + 1) * tiles // blocks) in order into one
+    partial V per sub-block of the plan's panels, WT formed per tile; then
+    the fold: the partials of V_FOLD_GROUPS groups of consecutive blocks,
+    each in block order, then the group sums in order."""
+    ng, nao = ao.shape
+    t, blocks, w = plan["tile_points"], plan["blocks"], plan["panel"]
+    tiles = plan["tiles"]
+    part = torch.full((blocks, nao, nao), float("nan"), dtype=ao.dtype)
+    for b in range(blocks):
+        t0, t1 = b * tiles // blocks, (b + 1) * tiles // blocks
+        assert t1 > t0                     # no block without a tile
+        for p in range(plan["panels"]):
+            ip = slice(p * w, min(nao, (p + 1) * w))
+            for q in range(plan["panels"]):
+                jq = slice(q * w, min(nao, (q + 1) * w))
+                assert torch.isnan(part[b, ip, jq]).all()   # written once
+                acc = torch.zeros((ip.stop - ip.start, jq.stop - jq.start),
+                                  dtype=ao.dtype)
+                for tile in range(t0, t1):
+                    g = slice(tile * t, min(ng, (tile + 1) * t))
+                    wt = vr[g, None] * ao[g, ip] + 2.0 * torch.einsum(
+                        "dg,dgi->gi", vg[:, g], ag[:, g, ip])
+                    acc += wt.T @ ao[g, jq]
+                part[b, ip, jq] = acc
+    assert not torch.isnan(part).any()     # every partial fully written
+    per = -(-blocks // hopper_xc.V_FOLD_GROUPS)
+    sums = []
+    for g in range(hopper_xc.V_FOLD_GROUPS):
+        s = torch.zeros((nao, nao), dtype=ao.dtype)
+        for b in range(g * per, min(blocks, (g + 1) * per)):
+            s += part[b]
+        sums.append(s)
+    v = sums[0]
+    for s in sums[1:]:
+        v = v + s
+    return v
+
+
+@pytest.mark.parametrize("sms", [1, 132])
+@pytest.mark.parametrize("ng,nao", [(100, 10), (33, 7), (700, 150)])
+def test_vxc_plan_replay_matches_reference(ng, nao, sms):
+    """Partial V per block and sub-block, folded in the fixed order of the
+    kernel's second pass, give the plain version and the JAX package's
+    assembly: the plan's partition loses and repeats nothing."""
+    ao, ag = _tables(ng, nao, seed=ng + 7)
+    rng = np.random.default_rng(nao + 7)
+    vr, vg = rng.standard_normal(ng), rng.standard_normal((3, ng))
+    tt = [torch.as_tensor(x) for x in (ao, ag, vr, vg)]
+    v = _vxc_replay(*tt, hopper_xc.vxc_plan(ng, nao, sms))
+    _close(v, hopper_xc.ds_vxc_reference(*tt).numpy(), 1e-12)
+    asm = jint._vxc_assemble(
+        {"rho": jnp.asarray(vr), "grad": jnp.asarray(vg)},
+        {"ao": jnp.asarray(ao), "ao_grad": jnp.asarray(ag)})
+    _close(v, asm, 1e-10)
+
+
 def test_plain_versions_pass_autograd_on_the_cpu():
     """On CPU tensors the wrappers are their plain versions, which autograd
     differentiates (only the kernels on the card are forward only); bad
