@@ -13,8 +13,6 @@ import shutil
 import subprocess
 import time
 
-import torch
-
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -90,15 +88,4 @@ def ptr(n: int):
 
 def ints(n: int):
     return [ctypes.c_int] * n
-
-
-def no_autograd(name: str, *tensors):
-    """The kernels are forward only: refuse to run where autograd would
-    need their derivative."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(
-            f"{name} is forward only and got a tensor that requires grad "
-            "under autograd; its derivative comes with the implicit "
-            "differentiation of slice 3 of the port (ROADMAP A9). Call it "
-            "under torch.no_grad() or on detached tensors.")
 

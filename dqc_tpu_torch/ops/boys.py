@@ -1,8 +1,9 @@
 """Boys function F_m(T) = \\int_0^1 t^{2m} exp(-T t^2) dt on tensors.
 
-Counterpart of dqc_tpu/ops/boys.py, forward only (the custom derivative rule
-dF_m/dT = -F_{m+1} comes when implicit differentiation is ported;
-plain autograd passes through this code meanwhile).
+Counterpart of dqc_tpu/ops/boys.py, with its derivative rule
+dF_m/dT = -F_{m+1} (`_Boys`, a torch.autograd.Function whose backward calls
+boys_list again through the same Function, so every order stays exact and
+autograd never records the 90-step series).
   - two branches: nested power series at m = mmax + downward recursion for
     T <= 27, closed-form erf F_0 + upward recursion beyond.
   - both branches are computed for every element and joined with
@@ -27,8 +28,8 @@ T_SWITCH = 27.0
 NTERMS = 90
 
 
-def boys_list(T, mmax: int):
-    """Boys functions as a list [F_0, ..., F_mmax], each of T's shape."""
+def _boys_values(T, mmax: int):
+    """[F_0, ..., F_mmax] by the two branches, without a derivative rule."""
     # series branch (T <= T_SWITCH), nested/Horner form, unrolled
     t_s = torch.clamp(T, max=T_SWITCH)
     x = 2.0 * t_s
@@ -52,6 +53,27 @@ def boys_list(T, mmax: int):
 
     is_small = T < T_SWITCH
     return [torch.where(is_small, a, b) for a, b in zip(f_small, f_large)]
+
+
+class _Boys(torch.autograd.Function):
+    """F_0..F_mmax of T with dF_m/dT = -F_{m+1}."""
+
+    @staticmethod
+    def forward(ctx, T, mmax):
+        ctx.mmax = mmax
+        ctx.save_for_backward(T)
+        return tuple(_boys_values(T, mmax))
+
+    @staticmethod
+    def backward(ctx, *fbar):
+        (T,) = ctx.saved_tensors
+        f = boys_list(T, ctx.mmax + 1)
+        return -sum(g * f[m + 1] for m, g in enumerate(fbar)), None
+
+
+def boys_list(T, mmax: int):
+    """Boys functions as a list [F_0, ..., F_mmax], each of T's shape."""
+    return list(_Boys.apply(T, mmax))
 
 
 def boys(T, mmax: int):

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..utils.config import DTYPE, config
 from .chunks import map_blocks
@@ -135,7 +136,15 @@ def coulomb_contract(bra: HermiteFactor, ket: HermiteFactor, block=None,
     n = bra.H.shape[0]
     if block is None:
         block = _auto_block(n, bra.H.shape[1], nq, nl, nht, nh1, nc)
-    return map_blocks(body, {"H": bra.H, "p": bra.p, "P": bra.P}, n, block)
+    fn = body
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (bra.H, bra.p, bra.P, W, ket.p, ket.P)):
+        # under autograd each block is recomputed in the backward instead of
+        # keeping its Hermite-R graph: kept, the graphs of benzene/def2-SVP
+        # would hold the whole 17.6 GB R stack and its recursion temporaries
+        def fn(args):
+            return checkpoint(body, args, use_reentrant=False)
+    return map_blocks(fn, {"H": bra.H, "p": bra.p, "P": bra.P}, n, block)
 
 
 def schwarz_bounds(meta: BasisMeta, params, block: int = 64):

@@ -16,9 +16,22 @@ host; the kernel checks the plan and refuses one that does not fit it.
 
 Dispatch: a tensor on the CPU takes the plain PyTorch version
 `ds_jk_reference`; a CUDA tensor launches the kernel or raises. Nothing
-switches the kernel off. The kernel is forward only, like the one it
-replaces: handed a CUDA tensor that requires grad under autograd, the
-wrapper raises; the plain version on the CPU passes autograd through.
+switches the kernel off.
+
+Derivatives (`_DsJk`, a torch.autograd.Function; the TPU kernel had none,
+its gradients took the einsum path). For a T with the pair symmetries of
+eri_k (eri_k[i,j,k,l] = (ik|jl)),
+  T[i,j,k,l] = T[k,l,i,j]   ((ik|jl) = (ki|lj)), and
+  T[i,j,k,l] = T[j,i,l,k]   ((ik|jl) = (jl|ik)),
+the cotangent in dm is the kernel itself applied to the cotangents:
+  dmbar = out_trail(T, out_trail_bar) + out_mid(T, out_mid_bar),
+two more launches through the same Function, so second order works too.
+The first symmetry gives the trailing term, the second the middle one.
+`_assert_pair_symmetric` checks both once per T with two probe contractions
+through the kernel and raises for a T without them. The cotangent of T,
+  Tbar[i,j,k,l] = out_trail_bar[i,j] dm[k,l] + out_mid_bar[i,k] dm[j,l],
+is a dense n^4 tensor of outer products in plain torch (1.35 GB at
+n = 114): a backward contraction that no TPU kernel computed.
 
 The shared library is built at first use with nvcc into
 dqc_tpu_torch/_build/ and loaded through ctypes (ops/_nvcc.py); nothing
@@ -145,18 +158,81 @@ def ds_jk_reference(T, dm):
     return out_trail, out_mid
 
 
-def ds_jk(T, dm):
-    """(out_trail, out_mid) of T (n,n,n,n) and dm (n,n), float64.
-
-    CPU tensors: the plain version (differentiable). CUDA tensors: the
-    kernel; T and dm must be contiguous. Raises on anything the kernel does
-    not take, on a failed build or launch, and under autograd."""
-    _check(T, dm)
+def _forward(T, dm):
+    """The kernel on a CUDA tensor, the plain version on a CPU tensor."""
     if T.device.type == "cpu":
         return ds_jk_reference(T, dm)
     if T.device.type != "cuda":
         raise RuntimeError(f"ds_jk has no kernel for device {T.device}")
-    _nvcc.no_autograd("ds_jk", T, dm)
+    return _launch(T, dm)
+
+
+# relative gate of the probe contractions that check T's pair symmetries
+PAIR_SYM_REL = 1e-10
+
+
+def _assert_pair_symmetric(T):
+    """Raise unless T has the two pair symmetries the dm-cotangent rule of
+    ds_jk relies on. For seeded probes P, Q (not symmetric):
+    <Q, trail(P)> = <P, trail(Q)> tests T[i,j,k,l] = T[k,l,i,j] and
+    <Q, mid(P)> = <P, mid(Q)> tests T[i,j,k,l] = T[j,i,l,k]. Two launches,
+    once per T (marked on the tensor with its version)."""
+    if getattr(T, "_pair_sym_version", None) == T._version:
+        return
+    n = T.shape[0]
+    g = torch.Generator().manual_seed(11)
+    P, Q = (torch.randn((n, n), generator=g, dtype=T.dtype).to(T.device)
+            for _ in range(2))
+    with torch.no_grad():
+        tp, mp = _forward(T, P)
+        tq, mq = _forward(T, Q)
+        for name, op, oq in (("T[i,j,k,l] = T[k,l,i,j]", tp, tq),
+                             ("T[i,j,k,l] = T[j,i,l,k]", mp, mq)):
+            # relative to the Cauchy-Schwarz bound of both sides
+            scale = float(Q.norm() * op.norm() + P.norm() * oq.norm())
+            diff = float(((Q * op).sum() - (P * oq).sum()).abs())
+            if diff > PAIR_SYM_REL * max(scale, 1e-300):
+                raise ValueError(
+                    f"ds_jk backward: T lacks the pair symmetry {name} "
+                    "that makes the dm cotangent a ds_jk of the "
+                    "cotangents")
+    T._pair_sym_version = T._version
+
+
+class _DsJk(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, T, dm):
+        ctx.save_for_backward(T, dm)
+        return _forward(T, dm)
+
+    @staticmethod
+    def backward(ctx, trail_bar, mid_bar):
+        T, dm = ctx.saved_tensors
+        tbar = dmbar = None
+        if ctx.needs_input_grad[1]:
+            _assert_pair_symmetric(T)
+            dmbar = (_DsJk.apply(T, trail_bar.contiguous())[0]
+                     + _DsJk.apply(T, mid_bar.contiguous())[1])
+        if ctx.needs_input_grad[0]:
+            tbar = (trail_bar[:, :, None, None] * dm[None, None, :, :]
+                    + mid_bar[:, None, :, None] * dm[None, :, None, :])
+        return tbar, dmbar
+
+
+def ds_jk(T, dm):
+    """(out_trail, out_mid) of T (n,n,n,n) and dm (n,n), float64.
+
+    CPU tensors: the plain version. CUDA tensors: the kernel; T and dm must
+    be contiguous. Differentiable on both (see the module docstring: the dm
+    cotangent needs T's pair symmetries). Raises on anything the kernel
+    does not take and on a failed build or launch."""
+    _check(T, dm)
+    return _DsJk.apply(T, dm)
+
+
+def _launch(T, dm):
+    """One launch of the kernel on CUDA tensors T and dm."""
     if not T.is_contiguous() or not dm.is_contiguous():
         raise ValueError("ds_jk needs contiguous T and dm on the card")
     lib = _load()

@@ -25,11 +25,21 @@ ring depth, shared memory and block count.
 
 Dispatch: tensors on the CPU take the plain PyTorch versions
 `ds_dens_reference` / `ds_vxc_reference`; CUDA tensors launch the kernel
-or raise. Nothing switches the kernels off. The kernels are forward only:
-handed a CUDA tensor that requires grad under autograd, the wrappers raise;
-the plain versions on the CPU pass autograd through. The shared libraries
-are built at first use (ops/_nvcc.py); nothing CUDA-only is touched at
-import.
+or raise. Nothing switches the kernels off. The shared libraries are built
+at first use (ops/_nvcc.py); nothing CUDA-only is touched at import.
+
+Derivatives (`_DsDens`, `_DsVxc`: torch.autograd.Functions; the TPU
+kernels had none). The two kernels are each other's transpose in their
+potential and density arguments:
+  - ds_dens_gga's cotangent in dm is ds_vxc_gga(ao, ao_grad, rhobar,
+    gdotbar), raw and unsymmetrised (d rho / d dm_ij = phi_i phi_j and
+    d gdot_d / d dm_ij = 2 dphi_d,i phi_j, the factor 2 of WT);
+  - ds_vxc_gga's cotangents in (vrho, vgrad) are ds_dens_gga(ao, ao_grad,
+    Vbar).
+Both go through the Functions again, so second order works. The
+cotangents of the tables phi and dphi are products of (ng, nao) tables
+with nao x nao matrices in plain torch: backward contractions that no TPU
+kernel computed.
 """
 from __future__ import annotations
 
@@ -96,7 +106,6 @@ def _check_common(name, tensors):
         return False
     if dev.type != "cuda":
         raise RuntimeError(f"{name} has no kernel for device {dev}")
-    _nvcc.no_autograd(name, *tensors)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name} needs contiguous tensors on the card")
     return True
@@ -170,15 +179,20 @@ def ds_dens_gga(ao, ao_grad, dm):
     """(rho (ng,), gdot (3, ng)) from ao (ng, nao), ao_grad (3, ng, nao) and
     dm (nao, nao), float64 (dm need not be symmetric).
 
-    CPU tensors: the plain version (differentiable). CUDA tensors: the
-    kernel; every tensor must be contiguous. Raises on anything the kernel
-    does not take, on a failed build or launch, and under autograd."""
+    CPU tensors: the plain version. CUDA tensors: the kernel; every tensor
+    must be contiguous. Differentiable on both. Raises on anything the
+    kernel does not take and on a failed build or launch."""
     ng, nao = _check_tables(ao, ao_grad, "ds_dens_gga")
     if tuple(dm.shape) != (nao, nao):
         raise ValueError(f"ds_dens_gga: dm must be ({nao}, {nao}), got "
                          f"{tuple(dm.shape)}")
+    return _DsDens.apply(ao, ao_grad, dm)
+
+
+def _dens_forward(ao, ao_grad, dm):
     if not _check_common("ds_dens_gga", (ao, ao_grad, dm)):
         return ds_dens_reference(ao, ao_grad, dm)
+    ng, nao = ao.shape
     lib = _nvcc.load("ds_dens_gga", _DENS_SYMBOLS)
     plan = _dens_launch_plan(ng, nao, ao.device.index)
     with torch.cuda.device(ao.device):
@@ -256,16 +270,21 @@ def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
     """Raw V (nao, nao) from ao (ng, nao), ao_grad (3, ng, nao), vrho (ng,)
     and vgrad (3, ng), float64.
 
-    CPU tensors: the plain version (differentiable). CUDA tensors: the
-    kernel; every tensor must be contiguous. Raises on anything the kernel
-    does not take, on a failed build or launch, and under autograd."""
+    CPU tensors: the plain version. CUDA tensors: the kernel; every tensor
+    must be contiguous. Differentiable on both. Raises on anything the
+    kernel does not take and on a failed build or launch."""
     ng, nao = _check_tables(ao, ao_grad, "ds_vxc_gga")
     if tuple(vrho.shape) != (ng,) or tuple(vgrad.shape) != (3, ng):
         raise ValueError(f"ds_vxc_gga: vrho must be ({ng},) and vgrad "
                          f"(3, {ng}), got {tuple(vrho.shape)} and "
                          f"{tuple(vgrad.shape)}")
+    return _DsVxc.apply(ao, ao_grad, vrho, vgrad)
+
+
+def _vxc_forward(ao, ao_grad, vrho, vgrad):
     if not _check_common("ds_vxc_gga", (ao, ao_grad, vrho, vgrad)):
         return ds_vxc_reference(ao, ao_grad, vrho, vgrad)
+    ng, nao = ao.shape
     lib = _nvcc.load("ds_vxc_gga", _VXC_SYMBOLS)
     plan = _vxc_launch_plan(ng, nao, ao.device.index)
     with torch.cuda.device(ao.device):
@@ -286,3 +305,57 @@ def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
 
 
 ds_vxc_gga.launches = 0   # launches of the CUDA kernel (never the plain version)
+
+
+class _DsDens(torch.autograd.Function):
+    """rho, gdot = ds_dens_gga(ao, ao_grad, dm) with its cotangents."""
+
+    @staticmethod
+    def forward(ctx, ao, ao_grad, dm):
+        ctx.save_for_backward(ao, ao_grad, dm)
+        return _dens_forward(ao, ao_grad, dm)
+
+    @staticmethod
+    def backward(ctx, rho_bar, gdot_bar):
+        ao, ag, dm = ctx.saved_tensors
+        need_ao, need_ag, need_dm = ctx.needs_input_grad
+        ao_bar = ag_bar = dm_bar = None
+        if need_dm:
+            dm_bar = _DsVxc.apply(ao, ag, rho_bar.contiguous(),
+                                  gdot_bar.contiguous())
+        if need_ao or need_ag:
+            c = ao @ dm.T                      # c[g,p] = sum_j dm[p,j] phi_j
+        if need_ao:
+            # rho = <c, phi>: both factors of phi; gdot_d = 2 <c, dphi_d>
+            ao_bar = rho_bar[:, None] * (c + ao @ dm) + 2.0 * (
+                (gdot_bar[:, :, None] * ag).sum(0) @ dm)
+        if need_ag:
+            ag_bar = 2.0 * gdot_bar[:, :, None] * c[None]
+        return ao_bar, ag_bar, dm_bar
+
+
+class _DsVxc(torch.autograd.Function):
+    """V = ds_vxc_gga(ao, ao_grad, vrho, vgrad) with its cotangents."""
+
+    @staticmethod
+    def forward(ctx, ao, ao_grad, vrho, vgrad):
+        ctx.save_for_backward(ao, ao_grad, vrho, vgrad)
+        return _vxc_forward(ao, ao_grad, vrho, vgrad)
+
+    @staticmethod
+    def backward(ctx, v_bar):
+        ao, ag, vrho, vgrad = ctx.saved_tensors
+        need_ao, need_ag, need_vr, need_vg = ctx.needs_input_grad
+        ao_bar = ag_bar = vr_bar = vg_bar = None
+        v_bar = v_bar.contiguous()
+        if need_vr or need_vg:
+            vr_bar, vg_bar = _DsDens.apply(ao, ag, v_bar)
+        if need_ao or need_ag:
+            c = ao @ v_bar.T                   # c[g,p] = sum_j Vbar[p,j] phi_j
+        if need_ao:
+            # V = WT^T phi: phi enters WT (vrho phi_i) and the right factor
+            ao_bar = vrho[:, None] * (c + ao @ v_bar) + 2.0 * (
+                (vgrad[:, :, None] * ag).sum(0) @ v_bar)
+        if need_ag:
+            ag_bar = 2.0 * vgrad[:, :, None] * c[None]
+        return ao_bar, ag_bar, vr_bar, vg_bar

@@ -1,8 +1,22 @@
-"""Symmetric eigendecomposition (counterpart of dqc_tpu/scf/eigh.py).
+"""Degenerate-safe symmetric eigendecomposition (counterpart of
+dqc_tpu/scf/eigh.py).
 
-Forward only: the degenerate-safe Lorentzian derivative rule of the JAX
-package comes when implicit differentiation is ported. The
-eigenvector polish of the JAX package has no counterpart: it repairs
+torch.linalg.eigh's own backward divides by eigenvalue gaps, which are zero
+for degenerate orbitals (atomic p shells, benzene's pi system). The JAX
+package broadens the gap instead: with d_ab = w_b - w_a,
+F_ab = d_ab / (d_ab^2 + eps^2) and F_aa = 0, its JVP is
+  dw = diag(V^T sym(dA) V),  dV = V (F o (V^T sym(dA) V)).
+`safe_eigh` is a torch.autograd.Function with that rule transposed:
+  Abar = sym(V (diag(wbar) + F o (V^T Vbar)) V^T),
+written with differentiable ops on the outputs, so double backward works.
+A gap below 1024 eps max|w| counts as an exact degeneracy (F = 0 there,
+as the rule gives for d = 0): at such gaps d/eps^2 would only amplify the
+eigensolver's rounding.
+For any function invariant under rotations inside a degenerate subspace of
+equal occupation (the density matrix is), the broadened rule gives the
+exact derivative.
+
+The eigenvector polish of the JAX package has no counterpart: it repairs
 f32-grade eigenvectors of an f64 solve on the TPU, while
 torch.linalg.eigh in float64 (LAPACK on the CPU, cuSOLVER on the card) is
 full precision.
@@ -11,9 +25,43 @@ from __future__ import annotations
 
 import torch
 
+_EPS = 1e-12
+# gaps below _ROUND * eps * max|w| are rounding, not structure
+_ROUND = 1024
+
+
+def _sym(a):
+    return 0.5 * (a + a.transpose(-1, -2))
+
+
+def _eigh_vjp(w, v, wbar, vbar):
+    d = w[..., None, :] - w[..., :, None]          # d_ab = w_b - w_a
+    # a gap at the rounding level of the eigensolver stands for an exact
+    # degeneracy, where the rule gives F = 0; kept, d/eps^2 (~1e9 at a
+    # gap of 1e-15) would multiply rounding noise of V^T Vbar
+    tiny = _ROUND * torch.finfo(w.dtype).eps * w.abs().amax(-1, keepdim=True)
+    f = torch.where(d.abs() > tiny[..., None], d / (d * d + _EPS * _EPS),
+                    torch.zeros_like(d))
+    f = f * (1.0 - torch.eye(w.shape[-1], dtype=w.dtype, device=w.device))
+    inner = f * (v.transpose(-1, -2) @ vbar) + torch.diag_embed(wbar)
+    return _sym(v @ inner @ v.transpose(-1, -2))
+
+
+class _SafeEigh(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, a):
+        w, v = torch.linalg.eigh(a)
+        ctx.save_for_backward(w, v)
+        return w, v
+
+    @staticmethod
+    def backward(ctx, wbar, vbar):
+        w, v = ctx.saved_tensors
+        return _eigh_vjp(w, v, wbar, vbar)
+
 
 def safe_eigh(a):
     """(eigenvalues ascending, eigenvectors in columns) of a symmetric
-    matrix or a batch of them."""
-    w, v = torch.linalg.eigh(a)
-    return w, v
+    matrix or a batch of them, with the degenerate-safe derivative rule."""
+    return _SafeEigh.apply(a)

@@ -1,16 +1,29 @@
-"""SCF fixed-point solver: DIIS-accelerated self-consistency loop.
+"""SCF fixed-point solver: DIIS-accelerated self-consistency loop, and the
+implicit-function derivative of its fixed point.
 
-Counterpart of dqc_tpu/scf/fixed_point.py, forward only: the
-implicit-function derivative rule comes with a later part of the port.
-The loop is a Python loop; ring buffers, the masked least-squares solve, the
-conditioning guard, best-iterate tracking, the non-finite freeze and the
-patience exit keep the meaning they have in the JAX package, so iteration
-counts and residual histories can be compared.
+Counterpart of dqc_tpu/scf/fixed_point.py. The loop is a Python loop; ring
+buffers, the masked least-squares solve, the conditioning guard,
+best-iterate tracking, the non-finite freeze and the patience exit keep the
+meaning they have in the JAX package, so iteration counts and residual
+histories can be compared.
+
+`implicit_fixed_point(step, solver, theta, x0)` is the counterpart of the
+JAX package's custom_jvp of the same name (and of the GMRES adjoint of its
+scf/adjoint.py): a torch.autograd.Function over theta's floating tensor
+leaves whose forward runs `solver` under no_grad and whose backward solves
+(I - d step/dx)^T lam = xbar by restarted GMRES (`gmres`), then forms
+thetabar = (d step/d theta)^T lam by autograd. The linear solve is itself a
+Function (`_AdjointSolve`) whose backward is the untransposed solve, the
+role custom_linear_solve's transpose_solve plays in the JAX package; so a
+double backward gives exact second derivatives (Hessian-vector products),
+not the derivative of GMRES's iterations.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -163,3 +176,235 @@ def diis_solve(step_and_err: Callable, f0, opts: SCFOptions):
         it += 1
     return (best_in.reshape(shape), best_raw.reshape(shape), it,
             best_err, errh)
+
+
+def gmres(matvec: Callable, b, tol: float = 1e-12, maxiter: int = 200,
+          restart: int = 60):
+    """Restarted GMRES for matvec(x) = b on flat tensors, on b's device
+    (counterpart of dqc_tpu/scf/adjoint.py::_gmres). Warm start at b;
+    Arnoldi with classical Gram-Schmidt done twice; the small
+    least-squares problems on the host. Returns (x, relative residual,
+    matvecs in the Krylov steps)."""
+    bn = float(torch.linalg.vector_norm(b))
+    if bn == 0.0:
+        return torch.zeros_like(b), 0.0, 0
+    x = b.clone()
+    total = 0
+    while total < maxiter:
+        r = b - matvec(x)
+        beta = float(torch.linalg.vector_norm(r))
+        if beta / bn < tol:
+            return x, beta / bn, total
+        m = min(restart, maxiter - total)
+        Q = torch.zeros((m + 1, b.numel()), dtype=b.dtype, device=b.device)
+        H = np.zeros((m + 1, m))
+        Q[0] = r / beta
+        k_done = m
+        for k in range(m):
+            w = matvec(Q[k])
+            h = Q[:k + 1] @ w
+            w = w - h @ Q[:k + 1]
+            h2 = Q[:k + 1] @ w
+            w = w - h2 @ Q[:k + 1]
+            H[:k + 1, k] = (h + h2).cpu().numpy()
+            H[k + 1, k] = float(torch.linalg.vector_norm(w))
+            total += 1
+            if H[k + 1, k] < 1e-300:
+                k_done = k + 1
+                break
+            Q[k + 1] = w / H[k + 1, k]
+            e1 = np.zeros(k + 2)
+            e1[0] = beta
+            y = np.linalg.lstsq(H[:k + 2, :k + 1], e1, rcond=None)[0]
+            if np.linalg.norm(H[:k + 2, :k + 1] @ y - e1) / bn < tol:
+                k_done = k + 1
+                break
+        e1 = np.zeros(k_done + 1)
+        e1[0] = beta
+        y = np.linalg.lstsq(H[:k_done + 1, :k_done], e1, rcond=None)[0]
+        x = x + torch.as_tensor(y, dtype=b.dtype, device=b.device) @ Q[:k_done]
+    r = b - matvec(x)
+    return x, float(torch.linalg.vector_norm(r)) / bn, total
+
+
+# GMRES settings of the adjoint solves (dqc_tpu/scf/adjoint.py:89, :255)
+GMRES_TOL = 1e-12
+GMRES_MAXITER = 200
+GMRES_RESTART = 60
+# a solve that ends above this relative residual is reported: the gradient
+# error is of the same order
+GMRES_WARN = 1e-8
+
+
+class _Slot:
+    def __init__(self, i):
+        self.i = i
+
+
+def _flatten(tree):
+    """(floating tensor leaves, rebuild) of a nested dict: rebuild(leaves)
+    gives the dict back with those leaves; everything else (bool masks,
+    ints) stays in it as it is."""
+    leaves = []
+
+    def take(t):
+        if isinstance(t, dict):
+            return {k: take(v) for k, v in t.items()}
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            leaves.append(t)
+            return _Slot(len(leaves) - 1)
+        return t
+
+    spec = take(tree)
+
+    def rebuild(ls, t=spec):
+        if isinstance(t, dict):
+            return {k: rebuild(ls, v) for k, v in t.items()}
+        return ls[t.i] if isinstance(t, _Slot) else t
+    return leaves, rebuild
+
+
+class _Problem(NamedTuple):
+    """What the Functions below need besides tensors: the map, the solver,
+    how theta is rebuilt from its leaves, and where solve statistics go."""
+    step: Callable
+    solver: Callable
+    rebuild: Callable
+    stats: list
+
+
+def _graph_inputs(x, leaves, needs, create):
+    """x and the leaves to differentiate step at: as saved (still joined to
+    their graph) when a graph of the backward is being built, otherwise
+    detached copies; a leaf requires grad only where it is needed."""
+    if create:
+        return x, list(leaves)
+    return (x.detach().requires_grad_(True),
+            [t.detach().requires_grad_(bool(n)) for t, n in zip(leaves, needs)])
+
+
+def _step_linear_maps(prob, x, leaves):
+    """(J^T v, J v) at (x, theta) as functions of a flat v, J = d step/dx,
+    with theta held fixed: one graph of step, reused by every product. J v
+    differentiates the (linear in u) product J^T u once more in u."""
+    with torch.enable_grad():
+        xd = x.detach().requires_grad_(True)
+        y = prob.step(xd, prob.rebuild([t.detach() for t in leaves]))
+        shape = y.shape
+
+        def jt(v):
+            (g,) = torch.autograd.grad(y, xd, v.reshape(shape),
+                                       retain_graph=True)
+            return g.reshape(-1)
+        u = torch.zeros_like(y, requires_grad=True)
+        (jtu,) = torch.autograd.grad(y, xd, u, create_graph=True)
+
+        def jv(v):
+            (g,) = torch.autograd.grad(jtu, u, v.reshape(shape),
+                                       retain_graph=True)
+            return g.reshape(-1)
+    return jt, jv
+
+
+def _solve(matvec, b, stats, what):
+    """x with matvec(x) = b by GMRES on the normalised rhs; a zero rhs
+    (common for symmetry-zero directions) gives zero without a solve."""
+    flat = b.reshape(-1)
+    bn = float(torch.linalg.vector_norm(flat))
+    if bn == 0.0:
+        stats.append({"solve": what, "iterations": 0, "rel": 0.0})
+        return torch.zeros_like(b)
+    x, rel, its = gmres(matvec, flat / bn, tol=GMRES_TOL,
+                        maxiter=GMRES_MAXITER, restart=GMRES_RESTART)
+    stats.append({"solve": what, "iterations": its, "rel": rel})
+    if not bool(torch.isfinite(x).all()):
+        raise RuntimeError(f"implicit_fixed_point: the {what} solve gave "
+                           "non-finite values")
+    if rel > GMRES_WARN:
+        warnings.warn(f"implicit_fixed_point: GMRES of the {what} solve "
+                      f"ended at a relative residual of {rel:.2e}; the "
+                      "derivative error is of the same order",
+                      RuntimeWarning, stacklevel=3)
+    return (x * bn).reshape(b.shape)
+
+
+class _AdjointSolve(torch.autograd.Function):
+    """lam = (I - J^T)^{-1} b, J = d step/dx at (x, theta). Its backward is
+    the untransposed solve mu = (I - J)^{-1} lambar: bbar = mu, and the
+    cotangents of x and theta are d/d(x, theta) <mu, J^T lam> with mu and
+    lam held (dlam = (I - J^T)^{-1} (db + dJ^T lam)). Exact to second
+    order, which is what a Hessian-vector product needs."""
+
+    @staticmethod
+    def forward(ctx, prob, b, x, *leaves):
+        jt, _ = _step_linear_maps(prob, x, leaves)
+        lam = _solve(lambda v: v - jt(v), b, prob.stats, "adjoint")
+        ctx.prob = prob
+        ctx.save_for_backward(lam, x, *leaves)
+        return lam
+
+    @staticmethod
+    def backward(ctx, lam_bar):
+        prob = ctx.prob
+        lam, x, *leaves = ctx.saved_tensors
+        _, jv = _step_linear_maps(prob, x, leaves)
+        mu = _solve(lambda v: v - jv(v), lam_bar, prob.stats, "transposed")
+        create = torch.is_grad_enabled()
+        needs = ctx.needs_input_grad[3:]
+        with torch.enable_grad():
+            xs, ls = _graph_inputs(x, leaves, needs, create)
+            y = prob.step(xs, prob.rebuild(ls))
+            (jtl,) = torch.autograd.grad(y, xs, lam.detach(),
+                                         create_graph=True)
+            wanted = [xs] + [t for t, n in zip(ls, needs) if n]
+            grads = list(torch.autograd.grad(
+                (jtl * mu.detach()).sum(), wanted, allow_unused=True,
+                create_graph=create))
+        x_bar = grads.pop(0) if ctx.needs_input_grad[2] else None
+        return (None, mu, x_bar,
+                *(grads.pop(0) if n else None for n in needs))
+
+
+class _ImplicitFixedPoint(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, prob, x0, *leaves):
+        with torch.no_grad():
+            x = prob.solver(prob.rebuild(list(leaves)), x0)
+        ctx.prob = prob
+        ctx.save_for_backward(x, *leaves)
+        return x
+
+    @staticmethod
+    def backward(ctx, x_bar):
+        prob = ctx.prob
+        x, *leaves = ctx.saved_tensors
+        needs = ctx.needs_input_grad[2:]
+        lam = _AdjointSolve.apply(prob, x_bar, x, *leaves)
+        create = torch.is_grad_enabled()
+        wanted_n = [n for n in needs if n]
+        grads = []
+        if wanted_n:
+            with torch.enable_grad():
+                xs, ls = _graph_inputs(x, leaves, needs, create)
+                y = prob.step(xs, prob.rebuild(ls))
+                grads = list(torch.autograd.grad(
+                    y, [t for t, n in zip(ls, needs) if n], lam,
+                    allow_unused=True, create_graph=create))
+        return (None, None, *(grads.pop(0) if n else None for n in needs))
+
+
+def implicit_fixed_point(step: Callable, solver: Callable, theta: dict, x0,
+                         stats: list = None):
+    """x* with x* = step(x*, theta), differentiable in theta by the implicit
+    function theorem (exact at convergence, to second order).
+
+    step: (x, theta) -> x, written in torch ops (every kernel on its path
+    has a derivative rule). solver: (theta, x0) -> x*, any algorithm whose
+    output satisfies the fixed point; run under no_grad and never
+    differentiated. theta: a nested dict; its floating tensors are the
+    differentiable inputs. stats: a list that gets one record per GMRES
+    solve of the backward ({'solve', 'iterations', 'rel'})."""
+    leaves, rebuild = _flatten(theta)
+    prob = _Problem(step, solver, rebuild, [] if stats is None else stats)
+    return _ImplicitFixedPoint.apply(prob, x0, *leaves)

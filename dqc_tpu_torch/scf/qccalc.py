@@ -2,7 +2,10 @@
 dqc_tpu/scf/qccalc.py).
 
 HF(mol).run() -> qc; KS(mol, xc="b3lyp").run() -> qc; qc.energy(),
-qc.aodm(), qc.dm2energy(dm).
+qc.aodm(), qc.dm2energy(dm); derivatives: qc.energy_grad() (dE/dparams;
+forces are -g["basis"]["atompos"]) and the differentiable
+qc.solve_dm(params) and qc.energy_fn(params). energy_hvp (a Hessian-vector
+product by double backward) is not ported yet.
 
 The JAX package has two routes through run(): one compiled solver for small
 systems and a host-driven ladder of f32 and f64 phases for large ones, made
@@ -11,8 +14,16 @@ float64 with the meaning of the small-system solver:
   f0 -> diis_solve(step_and_err) -> dm_from_fock(f_star) -> energy.
 Both take the dense route (eri_dense in the exchange layout eri_k); KS adds
 the grid tables. Periodic systems, density fitting, range-separated
-hybrids, the variational mode, the SAD guess and the derivative entry
-points are not ported yet.
+hybrids, the variational mode and the SAD guess are not ported yet.
+
+Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
+params in the autograd graph (one-electron integrals, the in-graph
+orthogonaliser X of safe_eigh, eri_dense and its eri_k layout, the grid
+points, Becke weights and AO tables, which move with the atoms), and the
+converged dm is `implicit_fixed_point(engine.step, ...)` of it, started from
+the dm of run(). The JAX package's split-module adjoint (scf/adjoint.py),
+made for a remote TPU compiler, has no counterpart: one backward through
+that graph is the same gradient.
 """
 from __future__ import annotations
 
@@ -28,7 +39,7 @@ from ..utils.logger import log
 from ..xc import get_xc
 from ..xc.integrate import setup_grid_theta
 from .engine import HFEngine, KSEngine
-from .fixed_point import SCFOptions, diis_solve
+from .fixed_point import SCFOptions, diis_solve, implicit_fixed_point
 from .hamilton import build_core_theta
 
 # at and above this nao the JAX package starts from SAD instead of the core
@@ -77,10 +88,16 @@ class SCF_QCCalc:
         # seconds per stage, Fock builds
         self.stats = {}
 
-    def _all_params(self):
+    def _all_params(self, with_fields: bool = True):
+        """The differentiable inputs: basis params (atompos among them),
+        atomzs and the fields. with_fields=False leaves out the zero
+        efield/efield_grad placeholders of a molecule without fields
+        (their multipole integrals cost time and contribute nothing to a
+        forward run); the derivative entry points take them by default."""
         mol = self.mol
         p = {"basis": mol.params, "atomzs": mol.atomzs}
-        if mol.efield is not None or mol.efield_grad is not None:
+        if (with_fields or mol.efield is not None
+                or mol.efield_grad is not None):
             z3 = torch.zeros(3, dtype=mol.dtype, device=mol.device)
             z33 = torch.zeros((3, 3), dtype=mol.dtype, device=mol.device)
             p["efield"] = z3 if mol.efield is None else mol._t(mol.efield)
@@ -109,7 +126,9 @@ class SCF_QCCalc:
                 "taking the GWH Fock")
         return gwh_fock(theta, eng.polarized)
 
-    def _solver(self, theta):
+    def _solver(self, theta, dm0=None):
+        """The converged dm of theta: DIIS from the Fock matrix of dm0, or
+        from _start_fock without one."""
         eng, opts = self.engine, self.opts
         if opts.method != "diis":
             raise NotImplementedError(
@@ -121,7 +140,7 @@ class SCF_QCCalc:
             err = eng.diis_err(f_new, dm, theta)
             return f_new, err
 
-        f0 = self._start_fock(theta)
+        f0 = self._start_fock(theta) if dm0 is None else eng.fock(dm0, theta)
         # final answer: the pair-consistent INPUT Fock — dm_from_fock of it
         # reproduces the density whose residual is best_err
         f_star, _, n_iter, best_err, errh = diis_solve(step_and_err, f0, opts)
@@ -141,8 +160,8 @@ class SCF_QCCalc:
             t0 = time.perf_counter()
             theta = self._theta
             if theta is None:
-                theta = self._build_theta(self._all_params(),
-                                          stats=self.stats)
+                theta = self._build_theta(
+                    self._all_params(with_fields=False), stats=self.stats)
             self._sync()
             t1 = time.perf_counter()
             self._dm = self._solver(theta)
@@ -171,8 +190,79 @@ class SCF_QCCalc:
         if isinstance(dm, SpinParam):
             dm = torch.stack([dm.u, dm.d], dim=0)
         if self._theta is None:
-            self._theta = self._build_theta(self._all_params())
+            self._theta = self._build_theta(
+                self._all_params(with_fields=False))
         return self.engine.energy(dm, self._theta)
+
+    # --- derivatives -----------------------------------------------------
+    def solve_dm(self, params):
+        """params -> (converged dm, theta), differentiable in params to
+        second order: theta is built in the graph and dm is the implicit
+        fixed point of engine.step, started from the dm of run() when
+        there is one. GMRES records of the backward go to
+        stats['gmres']."""
+        theta = self._build_theta(params)
+        dm0 = None if self._dm is None else self._dm.detach()
+        dm = implicit_fixed_point(
+            self.engine.step, lambda th, x0: self._solver(th, x0), theta,
+            dm0, stats=self.stats.setdefault("gmres", []))
+        return dm, theta
+
+    def energy_fn(self, params):
+        """params -> total energy, with exact derivatives through the SCF."""
+        dm, theta = self.solve_dm(params)
+        return self.engine.energy(dm, theta)
+
+    def _leaves(self, params):
+        """params with every floating tensor replaced by a detached copy
+        that requires grad, and the list of those copies."""
+        leaves = []
+
+        def take(t):
+            if isinstance(t, dict):
+                return {k: take(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(take(v) for v in t)
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                leaves.append(t.detach().requires_grad_(True))
+                return leaves[-1]
+            return t
+        return take(params), leaves
+
+    def _like(self, params, values):
+        """The structure of params with its floating tensors replaced, in
+        order, by `values` (None -> zeros)."""
+        it = iter(values)
+
+        def put(t):
+            if isinstance(t, dict):
+                return {k: put(v) for k, v in t.items()}
+            if isinstance(t, (list, tuple)):
+                return type(t)(put(v) for v in t)
+            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                g = next(it)
+                return torch.zeros_like(t) if g is None else g
+            return t
+        return put(params)
+
+    def energy_grad(self, params=None):
+        """dE/dparams as a dict shaped like params (default
+        _all_params(with_fields=False)); runs the SCF first if needed.
+        Forces: -energy_grad()["basis"]["atompos"]. Seconds and GMRES
+        records go to stats ('grad_s', 'gmres')."""
+        if not self._has_run:
+            self.run()
+        if params is None:
+            params = self._all_params(with_fields=False)
+        self.stats["gmres"] = []
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            p, leaves = self._leaves(params)
+            grads = torch.autograd.grad(self.energy_fn(p), leaves,
+                                        allow_unused=True)
+        self._sync()
+        self.stats["grad_s"] = time.perf_counter() - t0
+        return self._like(params, grads)
 
     def get_system(self):
         return self.mol

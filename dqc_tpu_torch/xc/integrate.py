@@ -4,15 +4,18 @@
 V_xc comes from the pointwise adjoints: autograd runs only through the
 functional chain, from the densities at the grid points to sum_g dvol e(g),
 and the matrix is assembled from those adjoints in closed form
-(`_vxc_assemble`), so the (ng, nao) table products never enter an autograd
-graph. V_xc is the symmetrised derivative of E_xc in dm.
+(`_vxc_assemble`). In the SCF loop (no_grad) the (ng, nao) table products
+never enter an autograd graph; when V_xc itself is differentiated (the
+implicit derivatives of scf/fixed_point.py) the adjoints keep their graph
+and the kernels' own derivative rules carry it. V_xc is the symmetrised
+derivative of E_xc in dm.
 
 The density and V_xc of a GGA go through ops/hopper_xc.ds_dens_gga and
 ds_vxc_gga, whose wrappers choose the device: the kernels K2 and K3 on a
-CUDA tensor (forward only: they raise under autograd), their differentiable
-plain versions on a CPU tensor. An LDA's density and matrix, and the
+CUDA tensor, their plain versions on a CPU tensor; both are differentiable
+(ops/hopper_xc.py). An LDA's density and matrix, and the
 lapl/tau terms of the MGGA family, are plain torch on either device.
-vxc_matrix_ad is the brute-force oracle: autograd of exc_energy, on the CPU.
+vxc_matrix_ad is the brute-force oracle: autograd of exc_energy.
 
 Grid tables are built from the atom positions (Becke weights and point
 coordinates move with the atoms). On the CPU the grid axis is cut into
@@ -191,20 +194,47 @@ def _unflat(d, it):
             for k, v in d.items()}
 
 
+def _tensors(x):
+    if isinstance(x, torch.Tensor):
+        return [x]
+    if isinstance(x, dict):
+        x = list(x.values())
+    if isinstance(x, (list, tuple)):
+        return [t for v in x for t in _tensors(v)]
+    return []
+
+
 def _pointwise_adjoints(xc, dens, w, polarized, xcparams):
     """(E_xc, vbar): the energy and its derivatives in the densities at the
     grid points, by autograd through the functional chain only (as
-    jax.value_and_grad(esum)(dens) in the JAX package). The densities are
-    detached first, so nothing upstream of them is differentiated."""
+    jax.value_and_grad(esum)(dens) in the JAX package).
+
+    Where something upstream is differentiated (grad enabled and a density,
+    the weights or an xcparams tensor requiring grad), the graph is kept:
+    vbar is taken with create_graph=True on the densities as they are, so
+    V_xc carries the second derivative of the functional (f_xc) in dm, in
+    the AO tables and in the weights, and E_xc its first. Otherwise (the SCF
+    loop runs under no_grad) the densities are detached first and nothing
+    upstream of them is differentiated. Either way the double-where screen
+    of _edens_at gives dead lanes harmless inputs, so no derivative order
+    sees a NaN."""
+    flat = _flat(dens)
+    keep = torch.is_grad_enabled() and any(
+        t.requires_grad for t in flat + [w] + _tensors(xcparams))
     with torch.enable_grad():
-        leaves = _detached_leaves(dens)
-        exc = torch.sum(_edens_at(xc, leaves, polarized, xcparams)
-                        * w.detach())
+        if keep:
+            leaves = _unflat(dens, iter(
+                x if x.requires_grad else x.detach().requires_grad_(True)
+                for x in flat))
+        else:
+            leaves, w = _detached_leaves(dens), w.detach()
+        exc = torch.sum(_edens_at(xc, leaves, polarized, xcparams) * w)
         flat = _flat(leaves)
-        grads = torch.autograd.grad(exc, flat, allow_unused=True)
+        grads = torch.autograd.grad(exc, flat, allow_unused=True,
+                                    create_graph=keep)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(flat, grads)]
-    return exc.detach(), _unflat(leaves, iter(grads))
+    return (exc if keep else exc.detach()), _unflat(leaves, iter(grads))
 
 
 def _exc_vxc_tabs(xc, dm, tabs, polarized: bool, xcparams):
@@ -264,8 +294,7 @@ def vxc_matrix(xc, dm, grid_theta, polarized: bool, xcparams=None):
 
 def vxc_matrix_ad(xc, dm, grid_theta, polarized: bool, xcparams=None):
     """Brute-force V_xc = autograd of exc_energy in dm: the test oracle of
-    exc_vxc. Differentiates through the plain versions, so the tables must
-    be on the CPU (on the card the forward-only kernels raise)."""
+    exc_vxc."""
     with torch.enable_grad():
         d = dm.detach().requires_grad_(True)
         (g,) = torch.autograd.grad(

@@ -218,17 +218,32 @@ def test_vxc_kernel_takes_tables_that_do_not_start_on_16_bytes():
 
 
 def test_xc_kernels_refuse_autograd_and_bad_inputs():
+    """Under autograd the kernels' backward launches the other kernel (K2's
+    dm cotangent is K3, K3's potential cotangents are K2) and agrees with
+    autograd of the plain versions (1e-10 relative); bad inputs raise."""
     _need_card()
     ao, ag = _tables(50, 7, seed=3)
-    dm = torch.eye(7, dtype=torch.float64, device="cuda")
-    vr = torch.ones(50, dtype=torch.float64, device="cuda")
-    vg = torch.ones((3, 50), dtype=torch.float64, device="cuda")
-    with pytest.raises(RuntimeError, match="slice 3"):
-        hopper_xc.ds_dens_gga(ao, ag, dm.clone().requires_grad_(True))
-    with pytest.raises(RuntimeError, match="slice 3"):
-        hopper_xc.ds_vxc_gga(ao, ag, vr.clone().requires_grad_(True), vg)
-    with torch.no_grad():
-        hopper_xc.ds_dens_gga(ao, ag, dm.clone().requires_grad_(True))
+    rng = np.random.default_rng(4)
+    dm = torch.as_tensor(rng.standard_normal((7, 7)), device="cuda")
+    vr = torch.as_tensor(rng.standard_normal(50), device="cuda")
+    vg = torch.as_tensor(rng.standard_normal((3, 50)), device="cuda")
+    for fn, plain, args, kernel in (
+            (hopper_xc.ds_dens_gga, hopper_xc.ds_dens_reference,
+             (ao, ag, dm), hopper_xc.ds_vxc_gga),
+            (hopper_xc.ds_vxc_gga, hopper_xc.ds_vxc_reference,
+             (ao, ag, vr, vg), hopper_xc.ds_dens_gga)):
+        grads = []
+        for f in (fn, plain):
+            xs = [a.clone().requires_grad_(True) for a in args]
+            out = f(*xs)
+            out = out if isinstance(out, tuple) else (out,)
+            before = kernel.launches
+            grads.append(torch.autograd.grad(
+                sum((o * (i + 1.0)).sum() for i, o in enumerate(out)), xs))
+            if f is fn:
+                assert kernel.launches == before + 1
+        for a, r in zip(*grads):
+            assert _rel(a, r) <= 1e-10
     with pytest.raises(TypeError):
         hopper_xc.ds_dens_gga(ao.float(), ag.float(), dm.float())
     with pytest.raises(ValueError):
@@ -244,7 +259,7 @@ def test_xc_on_the_card_takes_the_kernels_on_a_grid_beyond_the_chunk(
         monkeypatch):
     """The CPU's chunk limit bounds the plain versions' intermediates only:
     on the card a grid longer than it still goes whole through K2 and K3,
-    and a differentiated call raises instead of falling back."""
+    also when the call is differentiated (through the kernels' backward)."""
     _need_card()
     mol = dqt.Mol(H2O, basis="3-21G", grid=1)
     tabs = integrate.setup_grid_theta(mol.meta, mol.params,
@@ -267,8 +282,10 @@ def test_xc_on_the_card_takes_the_kernels_on_a_grid_beyond_the_chunk(
     assert abs(float(e) - float(ec)) <= 1e-11
     assert abs(float(e2) - float(ec)) <= 1e-11
     assert (v.cpu() - vc).abs().max().item() <= 1e-11
-    with pytest.raises(RuntimeError, match="slice 3"):
-        integrate.vxc_matrix_ad(xc, dm, tabs, False)
+    before = hopper_xc.ds_vxc_gga.launches
+    vad = integrate.vxc_matrix_ad(xc, dm, tabs, False)
+    assert hopper_xc.ds_vxc_gga.launches == before + 1
+    assert (vad.cpu() - vc).abs().max().item() <= 1e-11
 
 
 def test_ks_runs_on_the_card_through_all_three_kernels():

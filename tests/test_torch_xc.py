@@ -317,7 +317,7 @@ def test_vxc_plan_replay_matches_reference(ng, nao, sms):
 
 def test_plain_versions_pass_autograd_on_the_cpu():
     """On CPU tensors the wrappers are their plain versions, which autograd
-    differentiates (only the kernels on the card are forward only); bad
+    differentiates (on the card the kernels' own backward does); bad
     dtypes and shapes raise on either device."""
     ao, ag = (torch.as_tensor(x) for x in _tables(20, 4, seed=1))
     rng = np.random.default_rng(2)
