@@ -14,7 +14,17 @@ as the rule gives for d = 0): at such gaps d/eps^2 would only amplify the
 eigensolver's rounding.
 For any function invariant under rotations inside a degenerate subspace of
 equal occupation (the density matrix is), the broadened rule gives the
-exact derivative.
+exact derivative -- in exact arithmetic. In floating point the pairs of a
+degenerate level that the SCF splits by rounding (benzene's e1g, e2g, e1u,
+e2u levels) get F ~ 1/d, which multiplies the rounding of V^T Vbar: on
+benzene that alone broke the forces' mirror symmetry by 1e-5 Ha/Bohr
+(def2-SVP) and by more than the forces themselves (STO-3G).
+`eigh_density` therefore gives the density matrix P = V diag(occ) V^T its
+own rule, the same one multiplied out: dP = V (Gamma o (V^T dA V)) V^T
+with Gamma_ab = (occ_b - occ_a) F_ab, which is exactly 0 for equal
+occupations however close the eigenvalues are (the Daleckii-Krein formula
+of a spectral function, with the reference's broadening where occupations
+differ).
 
 The eigenvector polish of the JAX package has no counterpart: it repairs
 f32-grade eigenvectors of an f64 solve on the TPU, while
@@ -65,3 +75,42 @@ def safe_eigh(a):
     """(eigenvalues ascending, eigenvectors in columns) of a symmetric
     matrix or a batch of them, with the degenerate-safe derivative rule."""
     return _SafeEigh.apply(a)
+
+
+def _density_vjp(w, v, occ, pbar):
+    """Abar of P = V diag(occ) V^T at the eigenpairs (w, V) of A."""
+    d = w[..., None, :] - w[..., :, None]          # d_ab = w_b - w_a
+    docc = occ[..., None, :] - occ[..., :, None]   # occ_b - occ_a
+    gam = torch.where(docc != 0, docc * d / (d * d + _EPS * _EPS),
+                      torch.zeros_like(d))
+    g = v.transpose(-1, -2) @ _sym(pbar) @ v
+    return v @ (gam * g) @ v.transpose(-1, -2)
+
+
+class _EighDensity(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, a, occ):
+        w, v = torch.linalg.eigh(a)
+        p = (v * occ[..., None, :]) @ v.transpose(-1, -2)
+        ctx.save_for_backward(w, v, occ)
+        return p, w, v
+
+    @staticmethod
+    def backward(ctx, pbar, wbar, vbar):
+        w, v, occ = ctx.saved_tensors
+        abar = _density_vjp(w, v, occ, pbar) + _eigh_vjp(w, v, wbar, vbar)
+        occbar = None
+        if ctx.needs_input_grad[1]:
+            occbar = torch.diagonal(v.transpose(-1, -2) @ pbar @ v,
+                                    dim1=-2, dim2=-1)
+        return abar, occbar
+
+
+def eigh_density(a, occ):
+    """(P = V diag(occ) V^T, w, V) of a symmetric matrix (or a batch) and
+    occupations aligned to the ascending eigenvalues w. P's derivative is
+    exact for degenerate levels of equal occupation (module docstring);
+    w and V keep safe_eigh's rule. Double backward goes through the saved
+    (w, V), so its second-order terms keep safe_eigh's rule."""
+    return _EighDensity.apply(a, occ)

@@ -17,7 +17,7 @@ import torch
 
 from ..ops.hopper_jk import ds_jk_kplanes
 from ..xc.integrate import exc_energy, vxc_matrix
-from .eigh import safe_eigh
+from .eigh import eigh_density
 from .orth import LARGE
 
 
@@ -30,9 +30,9 @@ def orthogonal_fock_to_dm(fock, X, keep, occ):
     pin = torch.where(keep, torch.zeros_like(X[0]),
                       torch.full_like(X[0], LARGE))
     fp = fp + torch.diag(pin)
-    w, u = safe_eigh(fp)
+    p, w, u = eigh_density(fp, occ)
     c = torch.einsum("ij,...jk->...ik", X, u)
-    dm = torch.einsum("...ik,...k,...jk->...ij", c, occ, c)
+    dm = torch.einsum("ik,...kl,jl->...ij", X, p, X)
     return dm, w, c
 
 

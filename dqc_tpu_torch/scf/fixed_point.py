@@ -273,37 +273,41 @@ class _Problem(NamedTuple):
     stats: list
 
 
-def _graph_inputs(x, leaves, needs, create):
-    """x and the leaves to differentiate step at: as saved (still joined to
-    their graph) when a graph of the backward is being built, otherwise
-    detached copies; a leaf requires grad only where it is needed."""
-    if create:
-        return x, list(leaves)
-    return (x.detach().requires_grad_(True),
-            [t.detach().requires_grad_(bool(n)) for t, n in zip(leaves, needs)])
-
-
-def _step_linear_maps(prob, x, leaves):
-    """(J^T v, J v) at (x, theta) as functions of a flat v, J = d step/dx,
-    with theta held fixed: one graph of step, reused by every product. J v
-    differentiates the (linear in u) product J^T u once more in u."""
+def _step_graph(prob, x, leaves, needs=(), x_grad=True):
+    """(xd, theta leaves, step(xd, theta)): one graph of step at a detached
+    copy xd of x, reused by every product of a solve; the leaves require
+    grad where `needs` says so, else they are held fixed, and xd where
+    x_grad does (else no backward computes an x cotangent: the kernels'
+    dm cotangents are launches)."""
     with torch.enable_grad():
-        xd = x.detach().requires_grad_(True)
-        y = prob.step(xd, prob.rebuild([t.detach() for t in leaves]))
-        shape = y.shape
+        xd = x.detach().requires_grad_(x_grad)
+        ls = [t.detach().requires_grad_(bool(n))
+              for t, n in zip(leaves, list(needs) + [False] * len(leaves))]
+        y = prob.step(xd, prob.rebuild(ls))
+    return xd, ls, y
 
-        def jt(v):
-            (g,) = torch.autograd.grad(y, xd, v.reshape(shape),
-                                       retain_graph=True)
-            return g.reshape(-1)
+
+def _vjp_map(xd, y):
+    """v -> J^T v on flat tensors, J = d step/dx."""
+    def jt(v):
+        (g,) = torch.autograd.grad(y, xd, v.reshape(y.shape),
+                                   retain_graph=True)
+        return g.reshape(-1)
+    return jt
+
+
+def _jvp_map(xd, y):
+    """v -> J v on flat tensors: J^T u is linear in u, so its derivative in
+    u along v is J v. Builds the graph of J^T u once (create_graph)."""
+    with torch.enable_grad():
         u = torch.zeros_like(y, requires_grad=True)
         (jtu,) = torch.autograd.grad(y, xd, u, create_graph=True)
 
-        def jv(v):
-            (g,) = torch.autograd.grad(jtu, u, v.reshape(shape),
-                                       retain_graph=True)
-            return g.reshape(-1)
-    return jt, jv
+    def jv(v):
+        (g,) = torch.autograd.grad(jtu, u, v.reshape(y.shape),
+                                   retain_graph=True)
+        return g.reshape(-1)
+    return jv
 
 
 def _solve(matvec, b, stats, what):
@@ -337,7 +341,8 @@ class _AdjointSolve(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, prob, b, x, *leaves):
-        jt, _ = _step_linear_maps(prob, x, leaves)
+        xd, _, y = _step_graph(prob, x, leaves)
+        jt = _vjp_map(xd, y)
         lam = _solve(lambda v: v - jt(v), b, prob.stats, "adjoint")
         ctx.prob = prob
         ctx.save_for_backward(lam, x, *leaves)
@@ -347,22 +352,59 @@ class _AdjointSolve(torch.autograd.Function):
     def backward(ctx, lam_bar):
         prob = ctx.prob
         lam, x, *leaves = ctx.saved_tensors
-        _, jv = _step_linear_maps(prob, x, leaves)
-        mu = _solve(lambda v: v - jv(v), lam_bar, prob.stats, "transposed")
-        create = torch.is_grad_enabled()
         needs = ctx.needs_input_grad[3:]
+        xd, ls, y = _step_graph(prob, x, leaves, needs)
+        jv = _jvp_map(xd, y)
+        mu = _solve(lambda v: v - jv(v), lam_bar, prob.stats, "transposed")
         with torch.enable_grad():
-            xs, ls = _graph_inputs(x, leaves, needs, create)
-            y = prob.step(xs, prob.rebuild(ls))
-            (jtl,) = torch.autograd.grad(y, xs, lam.detach(),
+            (jtl,) = torch.autograd.grad(y, xd, lam.detach(),
                                          create_graph=True)
-            wanted = [xs] + [t for t, n in zip(ls, needs) if n]
+            wanted = [xd] + [t for t, n in zip(ls, needs) if n]
             grads = list(torch.autograd.grad(
-                (jtl * mu.detach()).sum(), wanted, allow_unused=True,
-                create_graph=create))
+                (jtl * mu.detach()).sum(), wanted, allow_unused=True))
         x_bar = grads.pop(0) if ctx.needs_input_grad[2] else None
         return (None, mu, x_bar,
                 *(grads.pop(0) if n else None for n in needs))
+
+
+class _StepVJP(torch.autograd.Function):
+    """(d step/d theta)^T lam at (x, theta) for the leaves that `needs`
+    marks, as a function of (lam, x, theta). Its backward differentiates
+    that product once more, on a graph of its own: a backward that kept
+    the graph of step at the saved x would run into the fixed point's
+    own backward again."""
+
+    @staticmethod
+    def forward(ctx, prob, needs, lam, x, *leaves):
+        ctx.prob, ctx.needs = prob, needs
+        ctx.save_for_backward(lam, x, *leaves)
+        _, ls, y = _step_graph(prob, x, leaves, needs, x_grad=False)
+        want = [t for t, n in zip(ls, needs) if n]
+        with torch.enable_grad():
+            g = torch.autograd.grad(y, want, lam.detach(), allow_unused=True)
+        return tuple(torch.zeros_like(t) if gi is None else gi
+                     for t, gi in zip(want, g))
+
+    @staticmethod
+    def backward(ctx, *gbar):
+        prob, needs = ctx.prob, ctx.needs
+        lam, x, *leaves = ctx.saved_tensors
+        with torch.enable_grad():
+            ld = lam.detach().requires_grad_(True)
+            xd, ls, y = _step_graph(prob, x, leaves,
+                                    [n or m for n, m in zip(
+                                        needs, ctx.needs_input_grad[4:])])
+            want = [t for t, n in zip(ls, needs) if n]
+            g = torch.autograd.grad(y, want, ld, create_graph=True,
+                                    allow_unused=True)
+            dot = sum((gi * gb).sum() for gi, gb in zip(g, gbar)
+                      if gi is not None)
+            live = [t for t in ls if t.requires_grad]
+            d = iter(torch.autograd.grad(dot, [ld, xd] + live,
+                                         allow_unused=True))
+        lam_bar, x_bar = next(d), next(d)
+        return (None, None, lam_bar, x_bar,
+                *(next(d) if t.requires_grad else None for t in ls))
 
 
 class _ImplicitFixedPoint(torch.autograd.Function):
@@ -381,16 +423,8 @@ class _ImplicitFixedPoint(torch.autograd.Function):
         x, *leaves = ctx.saved_tensors
         needs = ctx.needs_input_grad[2:]
         lam = _AdjointSolve.apply(prob, x_bar, x, *leaves)
-        create = torch.is_grad_enabled()
-        wanted_n = [n for n in needs if n]
-        grads = []
-        if wanted_n:
-            with torch.enable_grad():
-                xs, ls = _graph_inputs(x, leaves, needs, create)
-                y = prob.step(xs, prob.rebuild(ls))
-                grads = list(torch.autograd.grad(
-                    y, [t for t, n in zip(ls, needs) if n], lam,
-                    allow_unused=True, create_graph=create))
+        grads = list(_StepVJP.apply(prob, needs, lam, x, *leaves)
+                     if any(needs) else ())
         return (None, None, *(grads.pop(0) if n else None for n in needs))
 
 

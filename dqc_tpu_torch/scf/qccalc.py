@@ -4,8 +4,8 @@ dqc_tpu/scf/qccalc.py).
 HF(mol).run() -> qc; KS(mol, xc="b3lyp").run() -> qc; qc.energy(),
 qc.aodm(), qc.dm2energy(dm); derivatives: qc.energy_grad() (dE/dparams;
 forces are -g["basis"]["atompos"]) and the differentiable
-qc.solve_dm(params) and qc.energy_fn(params). energy_hvp (a Hessian-vector
-product by double backward) is not ported yet.
+qc.solve_dm(params) and qc.energy_fn(params); qc.energy_hvp(v), a
+Hessian-vector product by double backward.
 
 The JAX package has two routes through run(): one compiled solver for small
 systems and a host-driven ladder of f32 and f64 phases for large ones, made
@@ -88,16 +88,12 @@ class SCF_QCCalc:
         # seconds per stage, Fock builds
         self.stats = {}
 
-    def _all_params(self, with_fields: bool = True):
+    def _all_params(self):
         """The differentiable inputs: basis params (atompos among them),
-        atomzs and the fields. with_fields=False leaves out the zero
-        efield/efield_grad placeholders of a molecule without fields
-        (their multipole integrals cost time and contribute nothing to a
-        forward run); the derivative entry points take them by default."""
+        atomzs, and the fields the molecule has."""
         mol = self.mol
         p = {"basis": mol.params, "atomzs": mol.atomzs}
-        if (with_fields or mol.efield is not None
-                or mol.efield_grad is not None):
+        if mol.efield is not None or mol.efield_grad is not None:
             z3 = torch.zeros(3, dtype=mol.dtype, device=mol.device)
             z33 = torch.zeros((3, 3), dtype=mol.dtype, device=mol.device)
             p["efield"] = z3 if mol.efield is None else mol._t(mol.efield)
@@ -160,8 +156,8 @@ class SCF_QCCalc:
             t0 = time.perf_counter()
             theta = self._theta
             if theta is None:
-                theta = self._build_theta(
-                    self._all_params(with_fields=False), stats=self.stats)
+                theta = self._build_theta(self._all_params(),
+                                          stats=self.stats)
             self._sync()
             t1 = time.perf_counter()
             self._dm = self._solver(theta)
@@ -190,8 +186,7 @@ class SCF_QCCalc:
         if isinstance(dm, SpinParam):
             dm = torch.stack([dm.u, dm.d], dim=0)
         if self._theta is None:
-            self._theta = self._build_theta(
-                self._all_params(with_fields=False))
+            self._theta = self._build_theta(self._all_params())
         return self.engine.energy(dm, self._theta)
 
     # --- derivatives -----------------------------------------------------
@@ -247,25 +242,65 @@ class SCF_QCCalc:
 
     def energy_grad(self, params=None):
         """dE/dparams as a dict shaped like params (default
-        _all_params(with_fields=False)); runs the SCF first if needed.
-        Forces: -energy_grad()["basis"]["atompos"]. Seconds and GMRES
-        records go to stats ('grad_s', 'gmres')."""
+        _all_params()); runs the SCF first if needed.
+        Forces: -energy_grad()["basis"]["atompos"]. Seconds (the whole,
+        the forward that builds the graph, the backward) and GMRES records
+        go to stats ('grad_s', 'grad_forward_s', 'grad_backward_s',
+        'gmres')."""
         if not self._has_run:
             self.run()
         if params is None:
-            params = self._all_params(with_fields=False)
+            params = self._all_params()
         self.stats["gmres"] = []
         t0 = time.perf_counter()
         with torch.enable_grad():
             p, leaves = self._leaves(params)
-            grads = torch.autograd.grad(self.energy_fn(p), leaves,
-                                        allow_unused=True)
+            e = self.energy_fn(p)
+            self._sync()
+            t1 = time.perf_counter()
+            grads = torch.autograd.grad(e, leaves, allow_unused=True)
         self._sync()
-        self.stats["grad_s"] = time.perf_counter() - t0
+        t2 = time.perf_counter()
+        self.stats.update(grad_s=t2 - t0, grad_forward_s=t1 - t0,
+                          grad_backward_s=t2 - t1)
         return self._like(params, grads)
+
+    def energy_hvp(self, v, params=None):
+        """(d^2 E/dparams^2) v as a dict shaped like params (default
+        _all_params()), by a double backward through energy_fn: v is
+        shaped like params, a None in it stands for zeros. The backward of
+        the adjoint solve is the transposed solve, so the product is exact
+        at the fixed point. GMRES records go to stats['gmres']."""
+        if not self._has_run:
+            self.run()
+        if params is None:
+            params = self._all_params()
+        vs = _floats(self._like(params, _floats(v)))
+        self.stats["gmres"] = []
+        with torch.enable_grad():
+            p, leaves = self._leaves(params)
+            grads = torch.autograd.grad(self.energy_fn(p), leaves,
+                                        create_graph=True, allow_unused=True)
+            dot = sum((g * d.detach()).sum() for g, d in zip(grads, vs)
+                      if g is not None)
+            hv = torch.autograd.grad(dot, leaves, allow_unused=True)
+        return self._like(params, hv)
 
     def get_system(self):
         return self.mol
+
+
+def _floats(tree):
+    """The floating tensors of a nested dict/list, in the order _leaves
+    takes them (None stays None)."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _floats(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree for t in _floats(v)]
+    if tree is None or (isinstance(tree, torch.Tensor)
+                        and tree.is_floating_point()):
+        return [tree]
+    return []
 
 
 def _dense_route(mol, variational, opts, what):

@@ -303,3 +303,35 @@ def test_ks_runs_on_the_card_through_all_three_kernels():
     cpu = dqt.KS(dqt.Mol(h2o, basis="3-21G", grid=1, device="cpu"),
                  xc="b3lyp").run()
     assert abs(float(qc.energy()) - float(cpu.energy())) < 1e-10
+
+
+def test_forces_and_hvp_on_the_card_match_the_cpu():
+    """energy_grad and energy_hvp of B3LYP H2O/3-21G (grid 1, off its
+    mirror plane) on the card against the same calls on the CPU: forces to
+    1e-10 Ha/Bohr, the Hessian-vector product to 1e-9; all three kernels
+    launch inside each."""
+    _need_card()
+    desc = "O 0 0 0.2217; H 0 1.4309 -0.8867; H 0.1 -1.4309 -0.8867"
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mol = dqt.Mol(desc, basis="3-21G", grid=1, device=dev)
+        qc = dqt.KS(mol, xc="b3lyp", opts=dqt.SCFOptions(tol=1e-11)).run()
+        p = qc._all_params()
+        d = torch.as_tensor(np.random.default_rng(3).standard_normal(
+            p["basis"]["atompos"].shape), device=dev)
+        v = qc._like(p, [None] * 64)
+        v["basis"] = dict(v["basis"], atompos=d)
+        launches = []
+        for call in (lambda: qc.energy_grad(), lambda: qc.energy_hvp(v)):
+            hopper_jk.ds_jk.launches = 0
+            hopper_xc.ds_dens_gga.launches = 0
+            hopper_xc.ds_vxc_gga.launches = 0
+            r = call()["basis"]["atompos"].cpu()
+            launches.append((hopper_jk.ds_jk.launches,
+                             hopper_xc.ds_dens_gga.launches,
+                             hopper_xc.ds_vxc_gga.launches))
+            out.setdefault(dev, []).append(r)
+        if dev == "cuda":
+            assert all(n > 0 for row in launches for n in row), launches
+    assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-10
+    assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-9

@@ -22,7 +22,8 @@ from dqc_tpu_torch.convert import grid_theta_from_numpy, theta_from_numpy
 from dqc_tpu_torch.ops import hopper_jk, hopper_xc
 from dqc_tpu_torch.ops.boys import boys_list
 from dqc_tpu_torch.scf import engine as tengine
-from dqc_tpu_torch.scf.eigh import safe_eigh
+from dqc_tpu_torch.scf.eigh import eigh_density, safe_eigh
+from dqc_tpu_torch.scf.orth import orthogonalizer
 from dqc_tpu_torch.scf.fixed_point import SCFOptions
 from dqc_tpu_torch.xc import getxc as tgetxc
 
@@ -138,6 +139,85 @@ def test_safe_eigh_degenerate_pair_matches_jax():
     assert np.abs(got.numpy() - fd).max() <= 1e-8
 
 
+def _split_level_matrix(rng, n=6):
+    """A symmetric matrix whose doubly degenerate levels (1.0 and 2.0) are
+    split by 1e-11, as an SCF splits the degenerate orbitals of a
+    symmetric molecule."""
+    q, _ = np.linalg.qr(rng.standard_normal((n, n)))
+    w = np.array([0.5, 1.0, 1.0 + 1e-11, 2.0, 2.0 + 1e-11, 3.5])[:n]
+    return q @ np.diag(w) @ q.T
+
+
+def _np_density(f, s, nocc):
+    """dm of the lowest nocc orbitals of F C = S C e (numpy, occupation 2)."""
+    x = np.linalg.inv(np.linalg.cholesky(s)).T
+    _, u = np.linalg.eigh(x.T @ f @ x)
+    c = x @ u[:, :nocc]
+    return 2.0 * c @ c.T
+
+
+def test_eigh_density_levels_split_by_rounding():
+    """The density matrix of a matrix whose occupied and virtual levels are
+    degenerate up to a 1e-11 split: eigh_density's derivative against
+    central differences (numpy, h = 1e-6) to 1e-8. Through safe_eigh's
+    eigenvectors the same derivative carries 1/split times rounding."""
+    rng = np.random.default_rng(6)
+    a = _split_level_matrix(rng)
+    ct = rng.standard_normal(a.shape)
+    occ = torch.tensor([2.0, 2.0, 2.0, 0.0, 0.0, 0.0])
+    x = torch.tensor(a, requires_grad=True)
+    dm, _, _ = eigh_density(x, occ)
+    (got,) = torch.autograd.grad((dm * torch.as_tensor(ct)).sum(), x)
+    h = 1e-6
+    fd = np.zeros(a.shape)
+    for i in range(a.shape[0]):
+        for j in range(a.shape[1]):
+            e = np.zeros(a.shape)
+            e[i, j] = h
+            ap, am = a + e, a - e
+            fd[i, j] = ((_np_density(0.5 * (ap + ap.T), np.eye(6), 3)
+                         - _np_density(0.5 * (am + am.T), np.eye(6), 3))
+                        * ct).sum() / (2 * h)
+    assert np.abs(got.numpy() - fd).max() <= 1e-8
+
+
+def test_orthogonalizer_derivative_with_degenerate_overlap():
+    """dm(F, S) through orthogonalizer(S) and the SCF's dm map, for an S
+    with levels split by 1e-11: the derivative in S against central
+    differences of the generalized eigenproblem (numpy, h = 1e-6) to
+    1e-8, and to second order by gradgradcheck."""
+    rng = np.random.default_rng(7)
+    s = _split_level_matrix(rng) + 2.0 * np.eye(6)
+    f = rng.standard_normal((6, 6))
+    f = f + f.T
+    ct = rng.standard_normal((6, 6))
+    occ = torch.tensor([2.0, 2.0, 2.0, 0.0, 0.0, 0.0], dtype=torch.float64)
+
+    def dm_of(sm):
+        sm = 0.5 * (sm + sm.transpose(-1, -2))
+        x, keep = orthogonalizer(sm)
+        return tengine.orthogonal_fock_to_dm(torch.as_tensor(f), x, keep,
+                                             occ)[0]
+    st = torch.tensor(s, requires_grad=True)
+    (got,) = torch.autograd.grad((dm_of(st) * torch.as_tensor(ct)).sum(), st)
+    h = 1e-6
+    fd = np.zeros(s.shape)
+    for i in range(6):
+        for j in range(6):
+            e = np.zeros(s.shape)
+            e[i, j] = h
+            sp, sm_ = s + e, s - e
+            fd[i, j] = ((_np_density(f, 0.5 * (sp + sp.T), 3)
+                         - _np_density(f, 0.5 * (sm_ + sm_.T), 3))
+                        * ct).sum() / (2 * h)
+    assert np.abs(got.numpy() - fd).max() <= 1e-8
+    s_small = torch.tensor(_split_level_matrix(rng, 4)[:4, :4]
+                           + 2.0 * np.eye(4), requires_grad=True)
+    f = f[:4, :4]
+    occ = occ[:4]
+    assert GG(dm_of, (s_small,))
+
+
 # --- the kernel Functions on their plain versions ----------------------------
 
 def _sym_eri_k(t):
@@ -227,7 +307,7 @@ def _jax_forces(case):
     mol = dqc_tpu.Mol(H2O, basis="3-21G", grid=1)
     qc = (dqc_tpu.HF(mol, opts=JOptions(**_opts())) if CASES[case] is None
           else dqc_tpu.KS(mol, xc=CASES[case], opts=JOptions(**_opts())))
-    p = qc._all_params(with_fields=False)
+    p = qc._all_params()
 
     def e_of(pos):
         q = dict(p)
@@ -271,7 +351,7 @@ def test_grad_in_basis_exponents_and_efield():
     does for the JAX package; 1e-6)."""
     ef = [0.0, 0.0, 0.02]
     _, qc = _port_calc(None, H2, "sto-3g", efield=ef)
-    p0 = qc._all_params(with_fields=False)
+    p0 = qc._all_params()
     g = qc.energy_grad(p0)
     h = 1e-5
 
@@ -294,3 +374,78 @@ def test_grad_in_basis_exponents_and_efield():
         fd = (e_with(key, idx, h) - e_with(key, idx, -h)) / (2 * h)
         assert abs(fd - float(ad)) <= 1e-6, (key, idx, fd, float(ad))
     assert abs(float(g["efield"][2])) > 1e-3
+
+
+def _benzene_desc():
+    """Benzene with D6h bond lengths (C-C 1.39 A, C-H 1.09 A), atoms at
+    multiples of 60 degrees in the xy plane, C and H alternating."""
+    rcc = 1.39 / 0.52917721092
+    rch = (1.39 + 1.09) / 0.52917721092
+    atoms = []
+    for i in range(6):
+        a = np.pi / 3 * i
+        atoms.append(f"C {rcc * np.cos(a):.10f} {rcc * np.sin(a):.10f} 0.0")
+        atoms.append(f"H {rch * np.cos(a):.10f} {rch * np.sin(a):.10f} 0.0")
+    return "; ".join(atoms)
+
+
+def _mirror(F, axis):
+    """Forces of benzene (_benzene_desc) mapped by the mirror axis -> -axis:
+    atom pair k at angle 60k goes to angle 180 - 60k (x) or -60k (y)."""
+    G_ = np.zeros_like(F)
+    for k in range(6):
+        j = (3 - k) % 6 if axis == 0 else (-k) % 6
+        G_[2 * j:2 * j + 2] = F[2 * k:2 * k + 2]
+        G_[2 * j:2 * j + 2, axis] *= -1
+    return G_
+
+
+def test_forces_keep_the_mirror_symmetry_of_benzene():
+    """HF/STO-3G benzene: its orbitals (and those of S) come in degenerate
+    pairs that the SCF splits by rounding. The forces keep the
+    molecule's x and y mirror symmetries to 1e-10 Ha/Bohr, the adjoint
+    solve needs no GMRES step (xbar = F solves it, since the energy is
+    stationary in the occupied-virtual rotations), and a central
+    difference of the energy in atom 2's x (h = 1e-4 Bohr, where the
+    first form of the derivative was off by 0.23) agrees to 1e-8."""
+    _, qc = _port_calc(None, _benzene_desc(), "sto-3g")
+    F = -qc.energy_grad()["basis"]["atompos"].numpy()
+    assert [r["iterations"] for r in qc.stats["gmres"]] == [0]
+    for axis in (0, 1):
+        assert np.abs(F - _mirror(F, axis)).max() <= 1e-10
+    h = 1e-4
+    p0 = qc._all_params()
+    es = []
+    for s in (1, -1):
+        pos = p0["basis"]["atompos"].clone()
+        pos[2, 0] += s * h
+        with torch.no_grad():
+            es.append(float(qc.energy_fn(
+                dict(p0, basis=dict(p0["basis"], atompos=pos)))))
+        assert qc.stats["residual"] <= 1e-11
+    assert abs((es[0] - es[1]) / (2 * h) + F[2, 0]) <= 1e-8
+
+
+def test_energy_hvp_matches_finite_differences_of_energy_grad():
+    """energy_hvp of B3LYP H2O/3-21G (grid 1, off its mirror plane) along a
+    seeded direction of the atom positions, against the central
+    difference of energy_grad (h = 1e-4 Bohr, whose truncation error is
+    about 6e-8 here) to 1e-6; the transposed solve of the adjoint runs."""
+    desc = "O 0 0 0.2217; H 0 1.4309 -0.8867; H 0.1 -1.4309 -0.8867"
+    _, qc = _port_calc("b3lyp", desc)
+    qc.run()
+    p0 = qc._all_params()
+    pos0 = p0["basis"]["atompos"]
+    d = torch.as_tensor(np.random.default_rng(3).standard_normal(pos0.shape))
+    v = qc._like(p0, [None] * 64)
+    v["basis"] = dict(v["basis"], atompos=d)
+    hv = qc.energy_hvp(v)["basis"]["atompos"]
+    assert [r["solve"] for r in qc.stats["gmres"]] == [
+        "adjoint", "transposed", "adjoint"]
+    h = 1e-4
+    gs = [qc.energy_grad(dict(p0, basis=dict(p0["basis"],
+                                             atompos=pos0 + s * h * d)))
+          ["basis"]["atompos"] for s in (1, -1)]
+    fd = (gs[0] - gs[1]) / (2 * h)
+    assert float((hv - fd).abs().max()) <= 1e-6
+    assert float(fd.abs().max()) > 0.1
