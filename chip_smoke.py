@@ -6,29 +6,40 @@
 Builds the three hand-written CUDA kernels of the port from the sources in
 this checkout (K1 ds_jk, K2 ds_dens_gga, K3 ds_vxc_gga; one nvcc per source,
 all started together), holds each against its plain PyTorch version on the
-card, drives the port's two paths through the entry points a user calls —
-restricted Hartree-Fock and restricted B3LYP Kohn-Sham on benzene/def2-SVP
-(nao = 114; grid level 2, 78,144 points) through `Mol`, `HF`/`KS`,
-`SCF_QCCalc.run` — and checks what comes out against the JAX-CPU anchors.
-Any failed check or exception ends the run with a non-zero exit code.
-Without a CUDA device it fails at once and prints no result.
+card, drives the port's paths through the entry points a user calls (`Mol`,
+`HF`/`KS`, `SCF_QCCalc.run`, `energy_grad`) and checks what comes out
+against JAX-CPU anchors: restricted Hartree-Fock and B3LYP Kohn-Sham on
+benzene/def2-SVP (nao = 114; grid level 2, 78,144 points) from the SAD
+start, and their forces; CAM-B3LYP (long-range exchange through K1 on the
+erf-attenuated ERI), SCAN (a meta-GGA) and a neural CustomXC with its
+parameter gradient on the same molecule; B3LYP on vitamin C/cc-pVDZ (nao =
+208, the dense route past nao 128). Any failed check or exception ends the
+run with a non-zero exit code. Without a CUDA device it fails at once and
+prints no result.
 
 One JSON object per line: `device`, the card's name and power limit as
 nvidia-smi prints them, `build`, `kernel_checks`, `main_path` (HF),
-`eri_dense`, `eigh`, `xc_kernel_checks`, `main_path_ks`, `ks_kernel_checks`,
-`ds_dens_gga_plan`, `ds_vxc_gga_plan` and `ds_jk_plan` (the launch plans
-of K2, K3 and K1 at the main path's shapes), `ks_iteration_ms`,
-`ks_iteration_profile` (one KS iteration under torch.profiler: device time
-by kernel, the card's idle share), `kernel_backward_checks` (each kernel's
-autograd backward against the plain version's, with launch counts, and one
-double backward), `forces` (benzene B3LYP forces by implicit
-differentiation against tools/.force_cpu_def2-svp.npz: |dE|, max|dF|
-against the stored forces' mirror-symmetric part and raw, the forces'
-mirror gap, the grid's, |sum F|, seconds, GMRES records, launches inside
-the gradient, peak memory), `forces_fd` (central differences of the energy
-on the card), `small`, `kernels` (K3's row also has
-its registers and spills from this run's ptxas report), and as the last line
-{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
+`eri_dense`, `eigh`, `xc_kernel_checks`, `main_path_ks` (with the SCF
+iterations from SAD and from GWH on the same theta, the seconds of the
+atomic SCFs), `ks_kernel_checks`, `ds_dens_gga_plan`, `ds_vxc_gga_plan`
+and `ds_jk_plan` (the launch plans of K2, K3 and K1 at the main path's
+shapes), `ks_iteration_ms`, `ks_iteration_profile` (one KS iteration under
+torch.profiler: device time by kernel, the card's idle share),
+`kernel_backward_checks` (each kernel's autograd backward against the plain
+version's, with launch counts, and one double backward), `forces` (benzene
+B3LYP forces by implicit differentiation against
+tools/.force_cpu_def2-svp.npz: |dE|, max|dF| against the stored forces'
+mirror-symmetric part and raw, the forces' mirror gap, the grid's, |sum F|,
+seconds, GMRES records, launches inside the gradient, peak memory),
+`forces_fd` (central differences of the energy on the card), `cam_b3lyp`
+(with K1 on the erf tensor against its plain version and one steady
+iteration under the profiler), `meta_gga` (SCAN on benzene, and the PySCF
+anchors of SCAN exchange on CO and Li2), `nn_xc` (the parameter gradient
+against central differences), `vitamin_c`, `small`, `kernels` (K3's row
+also has its registers and spills from this run's ptxas report; every row
+its launches on every path, K1's also on the erf tensor: each path's own
+SCF, with those of the atomic SCFs of its SAD start apart), and as the last
+line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports the port only; nothing of JAX and nothing of the JAX package.
 """
@@ -55,6 +66,7 @@ from dqc_tpu_torch.ops import _nvcc, hopper_jk, hopper_xc     # noqa: E402
 from dqc_tpu_torch.ops.hopper_jk import ds_jk, ds_jk_reference  # noqa: E402
 from dqc_tpu_torch.ops.hopper_xc import (                     # noqa: E402
     ds_dens_gga, ds_dens_reference, ds_vxc_gga, ds_vxc_reference)
+from dqc_tpu_torch.scf import qccalc                         # noqa: E402
 from dqc_tpu_torch.scf.eigh import safe_eigh                  # noqa: E402
 from dqc_tpu_torch.xc import integrate                        # noqa: E402
 
@@ -81,6 +93,37 @@ NELEC = 42
 # same dqc_tpu.KS run gave this value on the JAX package's own grid
 KS_NELEC_GRID_JAX = 41.999618601085785
 H2_ANCHOR_HA = -1.07195346   # RHF H2/3-21G, d = 1.0 a0 (PySCF)
+# JAX-CPU values of dqc_tpu.KS(benzene/def2-svp, grid=2, xc, SCFOptions(
+# mixed=False)), same geometry, float64 on an x86-64 host, made by
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py camb3lyp scan nnxc
+# CAM-B3LYP: 597 s, final residual 1.6e-9, the JAX package's dense route
+# (the script raises its dense limit: its blocked route refuses exx_lr)
+CAM_ANCHOR_HA = -231.9410095912526
+# SCAN (mgga_x_scan + mgga_c_scan): 284 s, final residual 2.3e-9
+SCAN_ANCHOR_HA = -231.96826641400787
+# the neural CustomXC of nn_params_np/nn_edens below: 356 s, residual 3.3e-9
+NN_ANCHOR_HA = -227.06712708493444
+# PySCF anchors of SCAN exchange alone, 6-311++G** (tests/test_scf.py:73,
+# :109-114): CO at grid 3 to 1.3e-3 Ha, Li2 at grid 4 to 1e-4 Ha
+SCAN_PYSCF = (("C -1.0 0 0; O 1.0 0 0", 3, -112.836255, 1.3e-3),
+              ("Li -2.5 0 0; Li 2.5 0 0", 4, -14.8687500, 1e-4))
+KS_PLAIN_GATE_HA = 1e-9   # kernel path against plain path, same dm
+# central differences of the NN energy in its parameters: h and the gate
+NN_FD_STEP = 1e-4
+NN_FD_GATE_REL = 1e-6
+NN_SEED = 8
+# L-ascorbic acid, 20 atoms, Bohr (benchmarks/vitamin_c.py:16-36)
+VITAMIN_C = """O 0.1761 -2.0912 1.2179; O -2.5390 0.1686 -2.6197;
+O 1.5859 4.5166 0.5374; O -7.3565 -0.3855 -0.6285;
+O 5.7108 1.0762 -1.1444; O 3.7634 -4.0742 -0.2600;
+C -0.6419 0.4947 1.4840; C -3.0347 0.8664 -0.0624;
+C 1.5518 1.9398 0.5456; C -5.1899 -0.7714 0.9190;
+C 3.4161 0.4295 -0.1982; C 2.5579 -2.1696 0.2094;
+H -0.9740 0.8710 3.4930; H -3.6211 2.8520 -0.0816;
+H -4.7222 -2.7845 0.8222; H -5.6716 -0.2763 2.8684;
+H -2.0785 -1.6104 -2.6430; H 0.0074 5.0941 1.2812;
+H -8.6971 -1.4445 0.0486; H 6.6186 -0.4860 -1.4846"""
+VITAMIN_C_NELEC = 92
 
 ANGSTROM_TO_BOHR = 1.0 / 0.529177210903
 
@@ -423,8 +466,7 @@ def forces(smi_line):
     e = float(calc.energy())
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for f in (ds_jk, ds_dens_gga, ds_vxc_gga):
-        f.launches = 0
+    reset_counts()
     g = calc.energy_grad()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
@@ -505,6 +547,366 @@ def forces(smi_line):
     return rec
 
 
+# the launches inside each call of sad_dm0 since reset_counts: the atomic
+# SCFs of a SAD start, on the atoms' own small tensors
+_SAD_LAUNCHES = []
+
+
+def _all_counts():
+    return dict(_launch_counts(),
+                ds_jk_eri_lr=ds_jk.launches_by_tag.get("eri_lr", 0))
+
+
+def _count_sad(sad_dm0):
+    """qccalc.sad_dm0 that records the launches of its atomic SCFs, so that
+    path_counts can leave them out."""
+    def counted(mol, *args, **kwargs):
+        before = _all_counts()
+        dm = sad_dm0(mol, *args, **kwargs)
+        after = _all_counts()
+        _SAD_LAUNCHES.append({k: after[k] - before[k] for k in after})
+        return dm
+    return counted
+
+
+def reset_counts():
+    ds_jk.launches = ds_dens_gga.launches = ds_vxc_gga.launches = 0
+    ds_jk.launches_by_tag.clear()
+    _SAD_LAUNCHES.clear()
+
+
+def sad_counts():
+    """Launches of K1-K3 in the atomic SCFs of SAD starts since
+    reset_counts."""
+    return {k: sum(c[k] for c in _SAD_LAUNCHES) for k in _all_counts()}
+
+
+def path_counts():
+    """Launches of K1-K3 since reset_counts without those of the atomic SCFs
+    of a SAD start (sad_counts): the molecule's own; and K1's on the erf
+    tensors."""
+    sad = sad_counts()
+    return {k: v - sad[k] for k, v in _all_counts().items()}
+
+
+def check_launches(name, eng, launches, per_it, builds):
+    """Gates on a restricted path's own launches. One steady iteration
+    (per_it, measured by iteration_profile) launches K1 once, and once more
+    per omega of the long-range exchange, and K2 and K3 once for a GGA or
+    meta-GGA; the SCF launches that for each of its Fock builds, and one
+    more K1 pass (on each tensor) and one more K2 for its energy."""
+    xc = getattr(eng, "xc", None)
+    n_lr = 0 if xc is None else len(xc.exx_lr)
+    gga = int(xc is not None and xc.family >= 2)
+    want_it = {"ds_jk": 1 + n_lr, "ds_dens_gga": gga, "ds_vxc_gga": gga,
+               "ds_jk_eri_lr": n_lr}
+    if per_it != want_it:
+        fail(f"{name}: one iteration launched {per_it}, expected {want_it}")
+    want = {k: builds * v + (0 if k == "ds_vxc_gga" else v)
+            for k, v in per_it.items()}
+    if launches != want:
+        fail(f"{name}: the SCF launched {launches} for {builds} Fock builds "
+             f"and its energy, expected {want}")
+
+
+def plain_ks_energy(calc, dm):
+    """The energy of a restricted KS calc at dm through the plain versions
+    of all three kernels (J and K, each long-range K, rho and grad rho; the
+    lapl and tau of a meta-GGA are plain torch on either path)."""
+    eng, theta = calc.engine, calc._theta
+    grid = theta["grid"]
+    with torch.no_grad():
+        k, j = ds_jk_reference(theta["eri_k"], dm)
+        klr = [ds_jk_reference(theta[f"eri_lr_k{i}"], dm)[0]
+               for i in range(len(eng.xc.exx_lr))]
+        ao, ag = grid["ao"], grid["ao_grad"]
+        rho, gdot = ds_dens_reference(ao, ag, dm)
+        dens = {"rho": rho, "grad": gdot}
+        if eng.xc.family >= 4:
+            gg = torch.einsum("dgi,dgi->g", torch.einsum("dgi,ij->dgj", ag, dm),
+                              ag)
+            t1 = torch.einsum("gi,gi->g", grid["ao_lapl"] @ dm, ao)
+            dens.update(lapl=2.0 * t1 + 2.0 * gg, tau=0.5 * gg)
+        exc = torch.sum(integrate._edens_at(eng.xc, dens, False,
+                                            theta.get("xc_params"))
+                        * grid["dvol"])
+        return float(eng.energy_from_parts(dm, j, k, theta, exc=exc,
+                                           klr=klr))
+
+
+def iteration_profile(eng, theta, dm, smi_line):
+    """One DIIS iteration (density from a Fock matrix, Fock build, DIIS
+    error) under torch.profiler: device time by kernel and the share of the
+    iteration in which the card is idle; the kernels' launches in it."""
+    with torch.no_grad():
+        fock = eng.fock(dm, theta)
+
+        def one_iteration():
+            d = eng.dm_from_fock(fock, theta)
+            eng.diis_err(eng.fock(d, theta), d, theta)
+        one_iteration()
+        torch.cuda.synchronize()
+        reset_counts()
+        one_iteration()
+        launches = path_counts()
+        torch.cuda.synchronize()
+        t_it = time.perf_counter()
+        for _ in range(3):
+            one_iteration()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t_it) / 3 * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(3):
+                one_iteration()
+            torch.cuda.synchronize()
+    dev_events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in dev_events) / 3e3
+    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
+    return {
+        "wall_ms_per_iteration": wall_ms,
+        "device_ms_per_iteration": dev_ms,
+        "device_idle_share": (1.0 - dev_ms / wall_ms) if dev_ms > 0
+        else None,
+        "kernels_per_iteration": sum(e.count for e in dev_events) / 3,
+        "port_kernel_launches_per_iteration": launches,
+        "top_device_ms_per_iteration": [
+            {"name": e.key[:80], "ms": e.self_device_time_total / 3e3,
+             "launches": e.count / 3} for e in top],
+        "card": smi_line}
+
+
+def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None):
+    """One restricted KS path from Mol to the energy with the launch counts
+    set to 0 just before it and read just after; the gates every KS path
+    shares: the SCF converged, the energy within KS_GATE_HA of its anchor
+    (when it has one), the plain path within KS_PLAIN_GATE_HA, tr(D S) =
+    nelec, the SAD start, the launches of one iteration and of the SCF
+    (check_launches). Returns (calc, record)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    calc = dq.KS(mol, xc=xc, opts=opts)
+    reset_counts()
+    calc.run()
+    launches = path_counts()
+    launches_sad = sad_counts()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st = calc.stats
+    theta = calc._theta
+    dm = calc.aodm().contiguous()
+    e = float(calc.energy())
+    e_plain = plain_ks_energy(calc, dm)
+    profile = iteration_profile(calc.engine, theta, dm, smi_line)
+    trace_ds = float(torch.einsum("ij,ji->", dm, theta["ovlp"]))
+    iters = st["iterations"]
+    rec = {"nao": mol.meta.nao, "ngrid": int(theta["grid"]["dvol"].shape[0]),
+           "family": calc.engine.xc.family,
+           "exx_fraction": calc.engine.xc.exx_fraction,
+           "exx_lr": calc.engine.xc.exx_lr,
+           "guess": st.get("guess"), "sad_s": st.get("sad_s"),
+           "sad_elements": st.get("sad_elements"),
+           "int1e_s": st["int1e_s"], "eri_dense_s": st["eri_s"],
+           "eri_lr_s": st.get("eri_lr_s"), "grid_s": st["grid_s"],
+           "scf_s": st["scf_s"], "iterations": iters,
+           "s_per_iteration": (st["scf_s"] - st.get("sad_s", 0.0))
+           / max(iters, 1),
+           "total_s": total_s, "residual": st["residual"],
+           "tol": calc.opts.tol, "energy_ha": e, "energy_plain_ha": e_plain,
+           "anchor_ha": anchor,
+           "energy_minus_anchor_ha": None if anchor is None else e - anchor,
+           "launches": launches, "launches_sad": launches_sad,
+           "fock_builds": iters + 1, "iteration_profile": profile,
+           "trace_dm_ovlp": trace_ds, "peak_device_bytes": peak,
+           "card": smi_line}
+    if not np.isfinite(e) or tuple(dm.shape) != (mol.meta.nao,) * 2:
+        fail(f"{name}: energy not finite or dm of the wrong shape")
+    if not st["residual"] <= calc.opts.tol:
+        fail(f"{name}: residual {st['residual']:.3e} above tol "
+             f"{calc.opts.tol}")
+    if anchor is not None and abs(e - anchor) > KS_GATE_HA:
+        fail(f"{name}: energy {e!r} vs JAX-CPU anchor {anchor!r}")
+    if abs(e - e_plain) > KS_PLAIN_GATE_HA:
+        fail(f"{name}: kernel-path energy {e!r} vs plain-path {e_plain!r}")
+    if abs(trace_ds - nelec) > 1e-8:
+        fail(f"{name}: tr(D S) = {trace_ds!r}, expected {nelec}")
+    if rec["guess"] != "sad":
+        fail(f"{name}: the SCF started from {rec['guess']!r}, expected 'sad'")
+    check_launches(name, calc.engine, launches,
+                   profile["port_kernel_launches_per_iteration"],
+                   rec["fock_builds"])
+    return calc, rec
+
+
+def cam_b3lyp(smi_line):
+    """CAM-B3LYP on benzene/def2-SVP: the long-range exchange of every Fock
+    build is K1 on the erf-attenuated eri_lr_k0 (omega = 0.33)."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    calc, rec = ks_phase("cam_b3lyp", mol, "camb3lyp", CAM_ANCHOR_HA,
+                         smi_line)
+    theta = calc._theta
+    dm = calc.aodm().contiguous()
+    eng = calc.engine
+    reset_counts()
+    with torch.no_grad():
+        eng.fock(dm, theta)
+    rec["k1_launches_per_fock_build"] = dict(ds_jk.launches_by_tag)
+    lr_check = check_kernel(theta["eri_lr_k0"], dm,
+                            "benzene eri_lr_k0 (omega 0.33), converged dm")
+    rec["eri_lr_kernel_check"] = lr_check
+    emit({"cam_b3lyp": rec})
+    if rec["k1_launches_per_fock_build"] != {"eri_k": 1, "eri_lr": 1}:
+        fail("cam_b3lyp: K1 launches of one Fock build by tensor: "
+             f"{rec['k1_launches_per_fock_build']}")
+    return rec, lr_check
+
+
+def meta_gga(smi_line):
+    """SCAN on benzene/def2-SVP (K2 and K3 for rho, grad rho and their part
+    of V; lapl and tau in plain torch), then SCAN exchange on CO and Li2
+    against PySCF."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    calc, rec = ks_phase("meta_gga", mol, "scan", SCAN_ANCHOR_HA, smi_line)
+    if "ao_lapl" not in calc._theta["grid"]:
+        fail("meta_gga: the grid tables have no ao_lapl")
+    del calc
+    torch.cuda.empty_cache()
+    pyscf = []
+    for desc, grid, ref, tol in SCAN_PYSCF:
+        t0 = time.perf_counter()
+        qc = dq.KS(dq.Mol(desc, basis="6-311++G**", grid=grid),
+                   xc="mgga_x_scan").run()
+        e = float(qc.energy())
+        pyscf.append({"system": desc, "basis": "6-311++G**", "grid": grid,
+                      "xc": "mgga_x_scan", "energy_ha": e, "anchor_ha": ref,
+                      "tol_ha": tol, "iterations": qc.stats["iterations"],
+                      "seconds": time.perf_counter() - t0})
+    rec["pyscf_anchors"] = pyscf
+    emit({"meta_gga": rec})
+    for r in pyscf:
+        if not abs(r["energy_ha"] - r["anchor_ha"]) <= r["tol_ha"]:
+            fail(f"meta_gga: {r['system']} SCAN exchange {r['energy_ha']!r} "
+                 f"vs PySCF {r['anchor_ha']!r}")
+    return rec
+
+
+def nn_params_np():
+    """Seeded NN parameters (tests/torch_anchor_report.nn_params_np)."""
+    rng = np.random.default_rng(NN_SEED)
+    return {"w1": 0.5 * rng.standard_normal(8),
+            "ws": 0.5 * rng.standard_normal(8),
+            "b1": 0.1 * rng.standard_normal(8),
+            "w2": 0.5 * rng.standard_normal((8, 1)),
+            "b2": 0.1 * rng.standard_normal(1)}
+
+
+def nn_edens(p, d):
+    """examples/04_neural_xc.py's functional with s = |grad rho|/rho^(4/3)
+    as a second input, so that a GGA's kernels carry it."""
+    rho, sigma = d["rho"], d["sigma"]
+    n43 = rho ** (4.0 / 3.0)
+    x = rho ** (1.0 / 3.0)
+    s = torch.sqrt(torch.clamp(sigma, min=1e-40)) / n43
+    h = torch.tanh(x[..., None] * p["w1"] + s[..., None] * p["ws"] + p["b1"])
+    f = 1.0 + 0.2 * torch.tanh(h @ p["w2"] + p["b2"])[..., 0]
+    c = 0.75 * (3.0 / np.pi) ** (1.0 / 3.0)
+    return -c * n43 * f
+
+
+def nn_xc(smi_line):
+    """A family-2 CustomXC on benzene/def2-SVP: its energy, and
+    energy_grad()['xc_params'] against central differences of the energy
+    on the card along two seeded directions."""
+    from dqc_tpu_torch.convert import xc_params_from_numpy
+    from dqc_tpu_torch.xc.custom import CustomXC
+    params = xc_params_from_numpy(nn_params_np(), device=DEV)
+    xc = CustomXC(nn_edens, params, family=2, key="nnxc")
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    calc, rec = ks_phase("nn_xc", mol, xc, NN_ANCHOR_HA, smi_line,
+                         opts=dq.SCFOptions(tol=1e-10))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    g = calc.energy_grad()["xc_params"]["nnxc"]
+    launches = path_counts()
+    rec.update(grad_s=calc.stats["grad_s"],
+               grad_forward_s=calc.stats["grad_forward_s"],
+               grad_backward_s=calc.stats["grad_backward_s"],
+               gmres=calc.stats["gmres"], launches_in_gradient=launches,
+               peak_device_bytes_gradient=torch.cuda.max_memory_allocated())
+    p0 = calc._all_params()
+    nn0 = p0["xc_params"]["nnxc"]
+    rng = np.random.default_rng(NN_SEED + 1)
+    fd = []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        v = {k: torch.as_tensor(rng.standard_normal(tuple(t.shape)),
+                                device=DEV) for k, t in nn0.items()}
+        slope = sum(float((g[k] * v[k]).sum()) for k in v)
+        es = []
+        for sgn in (1, -1):
+            nn = {k: nn0[k] + sgn * NN_FD_STEP * v[k] for k in nn0}
+            with torch.no_grad():
+                es.append(float(calc.energy_fn(dict(p0,
+                                                    xc_params={"nnxc": nn}))))
+        cd = (es[0] - es[1]) / (2 * NN_FD_STEP)
+        fd.append({"slope": slope, "central_difference": cd,
+                   "rel_diff": abs(cd - slope) / abs(slope)})
+    rec["param_grad_fd"] = {"step": NN_FD_STEP, "directions": fd,
+                            "seconds": time.perf_counter() - t0,
+                            "gate_rel": NN_FD_GATE_REL}
+    rec["param_grad_norm"] = float(sum((t * t).sum() for t in g.values())
+                                   ** 0.5)
+    emit({"nn_xc": rec})
+    if not all(v > 0 for k, v in launches.items() if k != "ds_jk_eri_lr"):
+        fail(f"nn_xc: kernels inside the parameter gradient: {launches}")
+    for r in fd:
+        if not r["rel_diff"] <= NN_FD_GATE_REL:
+            fail(f"nn_xc: parameter gradient {r['slope']!r} vs central "
+                 f"difference {r['central_difference']!r}")
+    return rec
+
+
+def vitamin_c(smi_line):
+    """B3LYP on vitamin C/cc-pVDZ (nao = 208): the dense route past nao
+    128 (K1's streamed-dm plan, K2/K3 with two panels) on a real SCF."""
+    mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2)
+    calc, rec = ks_phase("vitamin_c", mol, "b3lyp", None, smi_line,
+                         nelec=VITAMIN_C_NELEC)
+    n = mol.meta.nao
+    rec["eri_bytes"] = 8 * n ** 4
+    rec["peak_over_eri"] = rec["peak_device_bytes"] / rec["eri_bytes"]
+    # the three kernels at this path's shapes against their plain versions,
+    # and K1's time there (dm's rows streamed with T's above n = 128)
+    theta, grid = calc._theta, calc._theta["grid"]
+    dm = calc.aodm().contiguous()
+    eri_k, ao, ag = theta["eri_k"], grid["ao"], grid["ao_grad"]
+    rho, gdot = ds_dens_reference(ao, ag, dm)
+    _, vbar = integrate._pointwise_adjoints(
+        calc.engine.xc, {"rho": rho, "grad": gdot}, grid["dvol"], False,
+        None)
+    vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+    rec["kernel_checks"] = [
+        check_kernel(eri_k, dm, f"vitamin C eri_k ({n}), converged dm"),
+        check_dens(ao, ag, dm, "vitamin C grid, converged dm"),
+        check_vxc(ao, ag, vr, vg, "vitamin C grid, real vrho/vgrad")]
+    k1_ms, k1_plain = time_turns(lambda: ds_jk(eri_k, dm),
+                                 lambda: ds_jk_reference(eri_k, dm), reps=5)
+    k1_bound, k1_by = bound(8 * (n ** 4 + 3 * n ** 2), 4 * n ** 4)
+    rec["ds_jk_at_n"] = {"n": n, "ms_runs": k1_ms, "plain_ms_runs": k1_plain,
+                         "bound_ms": k1_bound, "bound_by": k1_by,
+                         "plan": hopper_jk.jk_plan(
+                             n, torch.cuda.get_device_properties(0)
+                             .multi_processor_count)}
+    emit({"vitamin_c": rec})
+    if n <= 128:
+        fail(f"vitamin_c: nao = {n}, expected above 128")
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -558,14 +960,19 @@ def main():
         torch.cuda.empty_cache()
     emit({"kernel_checks": checks, "gate_rel": GATE_REL})
 
-    # 4. the main path: HF on benzene/def2-SVP
+    # 4. the main path: HF on benzene/def2-SVP. Every path's launches are
+    # its molecule's own: those of the SAD start's atomic SCFs are counted
+    # apart
+    qccalc.sad_dm0 = _count_sad(qccalc.sad_dm0)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mol = dq.Mol(benzene_desc(), basis="def2-svp")
     calc = dq.HF(mol)
-    ds_jk.launches = 0
+    reset_counts()
     calc.run()
-    launches = ds_jk.launches
+    hf_launches = path_counts()
+    hf_sad = sad_counts()
+    launches = hf_launches["ds_jk"]
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -582,14 +989,18 @@ def main():
         "nao": nao, "device": str(mol.device),
         "int1e_s": st["int1e_s"], "eri_dense_s": st["eri_s"],
         "scf_s": st["scf_s"], "iterations": st["iterations"],
-        "s_per_iteration": st["scf_s"] / max(st["iterations"], 1),
+        "s_per_iteration": (st["scf_s"] - st.get("sad_s", 0.0))
+        / max(st["iterations"], 1),
         "total_s": total_s, "residual": st["residual"],
         "tol": calc.opts.tol, "energy_ha": e_kernel,
         "energy_plain_jk_ha": e_plain, "anchor_ha": HF_ANCHOR_HA,
         "energy_minus_anchor_ha": e_kernel - HF_ANCHOR_HA,
-        "ds_jk_launches": launches, "fock_builds": st["iterations"] + 1,
+        "launches": hf_launches, "launches_sad": hf_sad,
+        "fock_builds": st["iterations"] + 1,
         "trace_dm_ovlp": trace_ds, "peak_device_bytes": peak_bytes,
-        "guess": "gwh",
+        "guess": st.get("guess"), "sad_s": st.get("sad_s"),
+        "iteration_profile": iteration_profile(calc.engine, theta,
+                                               dm.contiguous(), smi_line),
     }
     emit({"main_path": main})
     if nao != 114:
@@ -598,9 +1009,11 @@ def main():
         fail("energy not finite or dm of the wrong shape")
     if not st["residual"] <= calc.opts.tol:
         fail(f"SCF residual {st['residual']:.3e} above tol {calc.opts.tol}")
-    if not (launches > 0 and launches >= st["iterations"] + 1):
-        fail(f"ds_jk launched {launches} times for "
-             f"{st['iterations'] + 1} Fock builds")
+    if main["guess"] != "sad":
+        fail(f"HF started from {main['guess']!r}, expected 'sad'")
+    check_launches("main_path", calc.engine, hf_launches,
+                   main["iteration_profile"]
+                   ["port_kernel_launches_per_iteration"], main["fock_builds"])
     if abs(trace_ds - 42.0) > 1e-8:
         fail(f"tr(D S) = {trace_ds!r}, expected 42")
     if abs(e_kernel - e_plain) > 1e-9:
@@ -717,11 +1130,10 @@ def main():
     t0 = time.perf_counter()
     mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
     calc = dq.KS(mol, xc="b3lyp")
-    ds_jk.launches = ds_dens_gga.launches = ds_vxc_gga.launches = 0
+    reset_counts()
     calc.run()
-    ks_launches = {"ds_jk": ds_jk.launches,
-                   "ds_dens_gga": ds_dens_gga.launches,
-                   "ds_vxc_gga": ds_vxc_gga.launches}
+    ks_launches = path_counts()
+    ks_sad = sad_counts()
     torch.cuda.synchronize()
     total_s = time.perf_counter() - t0
     peak_bytes = torch.cuda.max_memory_allocated()
@@ -744,24 +1156,47 @@ def main():
     trace_ds = float(torch.einsum("ij,ji->", dm, theta["ovlp"]))
     nelec_grid = float(torch.sum(grid["dvol"] * rho))
     iters = st["iterations"]
+    # one DIIS iteration of the main path under torch.profiler
+    ks_profile = iteration_profile(calc.engine, theta, dm, smi_line)
+    ks_per_it = ks_profile["port_kernel_launches_per_iteration"]
     main_ks = {
         "system": "benzene", "basis": "def2-svp", "method": "RKS-B3LYP",
         "grid": 2, "ngrid": ng, "nao": mol.meta.nao,
         "device": str(mol.device), "int1e_s": st["int1e_s"],
         "eri_dense_s": st["eri_s"], "grid_s": st["grid_s"],
         "scf_s": st["scf_s"], "iterations": iters,
-        "s_per_iteration": st["scf_s"] / max(iters, 1),
+        "s_per_iteration": (st["scf_s"] - st.get("sad_s", 0.0))
+        / max(iters, 1),
         "energy_s": st["energy_s"], "total_s": total_s,
         "residual": st["residual"], "tol": calc.opts.tol,
         "energy_ha": e_kernel, "energy_plain_ha": e_plain,
         "anchor_ha": KS_ANCHOR_HA,
         "energy_minus_anchor_ha": e_kernel - KS_ANCHOR_HA,
-        "launches": ks_launches, "fock_builds": iters + 1,
+        "launches": ks_launches, "launches_sad": ks_sad,
+        "fock_builds": iters + 1,
         "trace_dm_ovlp": trace_ds, "sum_dvol_rho": nelec_grid,
         "sum_dvol_rho_jax": KS_NELEC_GRID_JAX,
-        "peak_device_bytes": peak_bytes, "guess": "gwh",
+        "peak_device_bytes": peak_bytes, "guess": st.get("guess"),
+        "sad_s": st.get("sad_s"), "sad_elements": st.get("sad_elements"),
     }
+    # the same SCF from the GWH Fock on the same theta: the iterations the
+    # SAD start saves
+    calc_gwh = dq.KS(mol, xc="b3lyp", opts=dq.SCFOptions(guess="gwh"))
+    calc_gwh._theta = theta
+    calc_gwh.run()
+    main_ks.update(iterations_gwh=calc_gwh.stats["iterations"],
+                   scf_s_gwh=calc_gwh.stats["scf_s"],
+                   residual_gwh=calc_gwh.stats["residual"],
+                   energy_gwh_ha=float(calc_gwh.energy()),
+                   guess_gwh=calc_gwh.stats.get("guess"))
+    del calc_gwh
     emit({"main_path_ks": main_ks})
+    if main_ks["guess"] != "sad" or main_ks["guess_gwh"] != "gwh":
+        fail(f"KS starts: {main_ks['guess']!r} and {main_ks['guess_gwh']!r},"
+             " expected 'sad' and 'gwh'")
+    if abs(main_ks["energy_gwh_ha"] - KS_ANCHOR_HA) > KS_GATE_HA:
+        fail(f"KS energy from GWH {main_ks['energy_gwh_ha']!r} vs JAX-CPU "
+             f"anchor {KS_ANCHOR_HA!r}")
     if mol.meta.nao != 114 or ng != 78144:
         fail(f"nao = {mol.meta.nao}, ng = {ng}; expected 114 and 78144")
     if not np.isfinite(e_kernel) or tuple(dm.shape) != (114, 114):
@@ -778,10 +1213,8 @@ def main():
             abs(nelec_grid - NELEC) > 1e-3:
         fail(f"sum dvol rho = {nelec_grid!r}, expected "
              f"{KS_NELEC_GRID_JAX!r} (JAX-CPU, same grid)")
-    if not (ks_launches["ds_jk"] >= iters + 1
-            and ks_launches["ds_dens_gga"] >= iters + 1
-            and ks_launches["ds_vxc_gga"] >= iters):
-        fail(f"kernels launched {ks_launches} times for {iters} iterations")
+    check_launches("main_path_ks", calc.engine, ks_launches, ks_per_it,
+                   iters + 1)
 
     # 7. K2/K3 on benzene's grid tables: the converged dm and the real
     # pointwise potentials vrho, vgrad at it
@@ -828,52 +1261,15 @@ def main():
     emit({"ds_dens_gga_plan": hopper_xc.dens_plan(ng, nao, sms)})
     emit({"ds_vxc_gga_plan": hopper_xc.vxc_plan(ng, nao, sms)})
     emit({"ds_jk_plan": {"n": nao, **hopper_jk.jk_plan(nao, sms)}})
-    per_it = {"ds_jk": min(k1_ms) * ks_launches["ds_jk"] / (iters + 1),
-              "ds_dens_gga": min(k2_ms) * ks_launches["ds_dens_gga"]
-              / (iters + 1),
-              "ds_vxc_gga": min(k3_ms) * ks_launches["ds_vxc_gga"]
-              / max(iters, 1)}
+    # each kernel's time times its launches in one iteration (measured)
+    per_it = {"ds_jk": min(k1_ms) * ks_per_it["ds_jk"],
+              "ds_dens_gga": min(k2_ms) * ks_per_it["ds_dens_gga"],
+              "ds_vxc_gga": min(k3_ms) * ks_per_it["ds_vxc_gga"]}
     emit({"ks_iteration_ms": {"s_per_iteration_ms":
                               1e3 * main_ks["s_per_iteration"],
+                              "launches_per_iteration": ks_per_it,
                               "kernel_ms_per_iteration": per_it}})
-
-    # one DIIS iteration of the main path (density from a Fock matrix, Fock
-    # build, DIIS error) under torch.profiler: device time by kernel and
-    # the share of the iteration in which the card is idle
-    eng = calc.engine
-    with torch.no_grad():
-        fock = eng.fock(dm, theta)
-
-        def one_iteration():
-            d = eng.dm_from_fock(fock, theta)
-            eng.diis_err(eng.fock(d, theta), d, theta)
-        one_iteration()
-        torch.cuda.synchronize()
-        t_it = time.perf_counter()
-        for _ in range(3):
-            one_iteration()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t_it) / 3 * 1e3
-        acts = [torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]
-        with torch.profiler.profile(activities=acts) as prof:
-            for _ in range(3):
-                one_iteration()
-            torch.cuda.synchronize()
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in dev_events) / 3e3
-    top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:12]
-    emit({"ks_iteration_profile": {
-        "wall_ms_per_iteration": wall_ms,
-        "device_ms_per_iteration": dev_ms,
-        "device_idle_share": (1.0 - dev_ms / wall_ms) if dev_ms > 0
-        else None,
-        "kernels_per_iteration": sum(e.count for e in dev_events) / 3,
-        "top_device_ms_per_iteration": [
-            {"name": e.key[:80], "ms": e.self_device_time_total / 3e3,
-             "launches": e.count / 3} for e in top],
-        "card": smi_line}})
+    emit({"ks_iteration_profile": ks_profile})
 
     # 9. the kernels' backward against autograd of their plain versions,
     # then the forces of the main path by implicit differentiation
@@ -881,8 +1277,36 @@ def main():
     del calc, theta, grid, eri_k, ao, ag
     torch.cuda.empty_cache()
     force_rec = forces(smi_line)
+    torch.cuda.empty_cache()
 
-    # 10. a small molecule against its published energy
+    # 10. the breadth of this slice: range separation, a meta-GGA, a neural
+    # functional with its parameter gradient, and nao past 128
+    cam_rec, lr_check = cam_b3lyp(smi_line)
+    checks.append(lr_check)
+    torch.cuda.empty_cache()
+    mgga_rec = meta_gga(smi_line)
+    torch.cuda.empty_cache()
+    nn_rec = nn_xc(smi_line)
+    torch.cuda.empty_cache()
+    vitc_rec = vitamin_c(smi_line)
+    torch.cuda.empty_cache()
+    by_path = {"main_path_hf": hf_launches, "main_path_ks": ks_launches,
+               "forces_gradient": force_rec["launches_in_gradient"],
+               "cam_b3lyp": cam_rec["launches"],
+               "meta_gga": mgga_rec["launches"], "nn_xc": nn_rec["launches"],
+               "nn_xc_gradient": nn_rec["launches_in_gradient"],
+               "vitamin_c": vitc_rec["launches"]}
+
+    sad_by_path = {"main_path_hf": hf_sad, "main_path_ks": ks_sad,
+                   "cam_b3lyp": cam_rec["launches_sad"],
+                   "meta_gga": mgga_rec["launches_sad"],
+                   "nn_xc": nn_rec["launches_sad"],
+                   "vitamin_c": vitc_rec["launches_sad"]}
+
+    def launches_of(name, paths=by_path):
+        return {path: c.get(name, 0) for path, c in paths.items()}
+
+    # 11. a small molecule against its published energy
     qc = dq.HF(dq.Mol("H -0.5 0 0; H 0.5 0 0", basis="3-21G")).run()
     e_h2 = float(qc.energy())
     emit({"small": {"system": "H2", "basis": "3-21G", "energy_ha": e_h2,
@@ -908,6 +1332,9 @@ def main():
         "bound_ms": k1_hf["bound_ms"], "bound_by": k1_hf["bound_by"],
         "library_ms": k1_hf["library_ms"],
         "launches_hf_path": k1_hf["launches"],
+        "launches_by_path": launches_of("ds_jk"),
+        "launches_sad_by_path": launches_of("ds_jk", sad_by_path),
+        "launches_eri_lr": cam_rec["launches"]["ds_jk_eri_lr"],
         "n": n, "bytes_moved": k1_hf["bytes_moved"], "flops": k1_hf["flops"],
         "ms_runs": k1_ms, "plain_ms_runs": k1_plain,
         "ms_runs_hf_phase": k1_hf["ms_runs"],
@@ -922,6 +1349,8 @@ def main():
         "launches": ks_launches["ds_dens_gga"],
         "launches_in_gradient":
             force_rec["launches_in_gradient"]["ds_dens_gga"],
+        "launches_by_path": launches_of("ds_dens_gga"),
+        "launches_sad_by_path": launches_of("ds_dens_gga", sad_by_path),
         "max_abs_err": xc_err(real_xc[:1]),
         "ms": min(k2_ms), "plain_ms": min(k2_plain),
         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
@@ -941,6 +1370,8 @@ def main():
         "launches": ks_launches["ds_vxc_gga"],
         "launches_in_gradient":
             force_rec["launches_in_gradient"]["ds_vxc_gga"],
+        "launches_by_path": launches_of("ds_vxc_gga"),
+        "launches_sad_by_path": launches_of("ds_vxc_gga", sad_by_path),
         "max_abs_err": xc_err(real_xc[1:]),
         "ms": min(k3_ms), "plain_ms": min(k3_plain),
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib,

@@ -3,12 +3,15 @@
 Differentiable quantum chemistry in float64. This package is the port of
 the JAX package `dqc_tpu` that stands beside it; it imports torch, numpy
 and scipy only. Ported so far: molecules, the vendored basis sets, the
-one- and two-electron integrals, the integration grid, LDA and GGA
-functionals (hybrids included), and restricted/unrestricted Hartree-Fock
-and Kohn-Sham. On the card J and K of every Fock build come from a
-hand-written CUDA kernel (ops/hopper_jk.py, csrc/ds_jk.cu), and the grid
-density and V_xc of a GGA from two more (ops/hopper_xc.py,
-csrc/ds_dens_gga.cu, csrc/ds_vxc_gga.cu).
+one- and two-electron integrals, the integration grid, LDA, GGA and
+meta-GGA functionals (hybrids and range-separated hybrids included) and
+user-defined (neural) ones (xc/custom.CustomXC), restricted/unrestricted
+Hartree-Fock and Kohn-Sham from the SAD start, and their derivatives
+through the SCF. On the card J and K of every Fock build, and the
+long-range K of a range-separated hybrid, come from a hand-written CUDA
+kernel (ops/hopper_jk.py, csrc/ds_jk.cu), and the grid density and V_xc of
+a GGA or meta-GGA from two more (ops/hopper_xc.py, csrc/ds_dens_gga.cu,
+csrc/ds_vxc_gga.cu).
 
 Calculations run on the CUDA card unless the caller passes device="cpu";
 without a card and without that argument the entry points raise.
@@ -28,7 +31,7 @@ from .xc import get_xc, get_libxc                # noqa: F401
 # names of the JAX package that later parts of the port bring
 _NOT_PORTED = {
     "Sol": "periodic systems (ROADMAP A14)",
-    "ValGrad": "the meta-GGA and custom-XC density containers (ROADMAP A10)",
+    "ValGrad": "the density containers of the property API (ROADMAP A13)",
     "band_energies": "k-point periodic systems (ROADMAP A15)",
 }
 for _n in ("hessian_pos", "vibration", "ir_spectrum", "raman_spectrum",

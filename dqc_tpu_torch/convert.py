@@ -1,8 +1,8 @@
 """Carrying parameters and state across from the JAX package.
 
-The caller turns the JAX package's `mol.params` tree or a `theta` dict into
-numpy arrays (np.asarray on the JAX side); these functions return the
-port's tensors on the requested device. This module imports neither jax nor
+The caller turns the JAX package's `mol.params` tree, a `theta` dict or the
+parameter tree of a CustomXC into numpy arrays (np.asarray on the JAX
+side); these functions return the port's tensors on the requested device. This module imports neither jax nor
 the JAX package. With it a test can put the JAX package's integrals through
 the port's engine, and compare one stage at a time.
 """
@@ -74,3 +74,16 @@ def grid_theta_from_numpy(coords, dvol, ao, ao_grad=None, ao_lapl=None,
     if ao_lapl is not None:
         out["ao_lapl"] = _f64(ao_lapl, device)
     return out
+
+
+def xc_params_from_numpy(tree, device=None):
+    """The parameters of a CustomXC (xc/custom.py) from the JAX package's
+    parameter pytree as numpy: nested dicts, lists and tuples keep their
+    structure, every array or number becomes a float64 tensor (0-d for a
+    scalar). With it the same NN runs through both packages."""
+    device = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: xc_params_from_numpy(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(xc_params_from_numpy(v, device) for v in tree)
+    return _f64(tree, device)

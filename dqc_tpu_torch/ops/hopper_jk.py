@@ -254,10 +254,15 @@ def _launch(T, dm):
         raise RuntimeError(f"ds_jk kernel launch failed: cudaError {err} "
                            f"(n={n}, plan={plan})")
     ds_jk.launches += 1
+    tag = getattr(T, "jk_tag", "eri_k")
+    ds_jk.launches_by_tag[tag] = ds_jk.launches_by_tag.get(tag, 0) + 1
     return out_trail, out_mid
 
 
 ds_jk.launches = 0   # launches of the CUDA kernel (never the plain version)
+# the same launches by the `jk_tag` attribute of T ("eri_lr" on the
+# erf-attenuated tensors of scf/qccalc; untagged tensors count as "eri_k")
+ds_jk.launches_by_tag = {}
 
 
 def ds_jk_kplanes(T, dm):

@@ -6,16 +6,19 @@ occupation weights) is the only state.
 
 State convention: restricted -> dm (nao, nao); polarized -> dm (2, nao, nao).
 
-theta carries the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl))
-only; J and K of every Fock build come from one pass of the fused kernel
-(ops/hopper_jk.py) over it, once per spin. The periodic, blocked, streamed
-and density-fitted branches of the JAX engine are not ported yet.
+theta carries the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl));
+J and K of every Fock build come from one pass of the fused kernel
+(ops/hopper_jk.py) over it, once per spin. A range-separated hybrid adds one
+erf-attenuated tensor per distinct omega in the same layout (eri_lr_k0,
+eri_lr_k1, ...), whose long-range K comes from the same kernel. The
+periodic, blocked, streamed and density-fitted branches of the JAX engine
+are not ported yet.
 """
 from __future__ import annotations
 
 import torch
 
-from ..ops.hopper_jk import ds_jk_kplanes
+from ..ops.hopper_jk import ds_jk, ds_jk_kplanes
 from ..xc.integrate import exc_energy, vxc_matrix
 from .eigh import eigh_density
 from .orth import LARGE
@@ -104,58 +107,79 @@ class HFEngine:
 
 
 class KSEngine(HFEngine):
-    """Restricted/unrestricted Kohn-Sham with LDA/GGA functionals and
-    hybrid exact exchange (B3LYP etc.).
+    """Restricted/unrestricted Kohn-Sham with LDA, GGA and meta-GGA
+    functionals, hybrid exact exchange (B3LYP, ...) and range-separated
+    exact exchange (CAM-B3LYP, LC-BLYP, ...).
 
-    Extra theta key: the grid tables theta['grid'] (xc/integrate.
-    setup_grid_theta); the XC object is held on the engine. jk_parts is
-    HFEngine's: K comes with J from the one pass of K1 even when the
-    functional has no exact exchange. V_xc and E_xc come from
-    xc/integrate, which takes the kernels K2/K3 for a GGA on the card.
-    Range-separated exchange (exx_lr) is not ported yet."""
+    Extra theta keys: the grid tables theta['grid'] (xc/integrate.
+    setup_grid_theta), the NN parameters theta['xc_params'] of a CustomXC,
+    and one erf-attenuated ERI per entry of xc.exx_lr, eri_lr_k{i}, in the
+    exchange layout of eri_k; the XC object is held on the engine.
+    jk_parts is HFEngine's: K comes with J from the one pass of K1 even
+    when the functional has no exact exchange. V_xc and E_xc come from
+    xc/integrate, which takes the kernels K2/K3 for rho and grad rho on the
+    card. The long-range K of each omega is one K1 pass per spin
+    (lr_parts); fock_from_parts and energy_from_parts compute it unless
+    the caller passes it (klr=, as exc= for the XC energy)."""
 
     def __init__(self, xc, polarized: bool = False):
         super().__init__(polarized)
         self.xc = xc
 
     def _k_lr(self, theta, dm, i):
-        raise NotImplementedError(
-            "not ported yet: long-range exact exchange of the "
-            "range-separated hybrids (ROADMAP A10)")
+        """Exchange with the long-range erf(omega r)/r kernel of term i of
+        xc.exx_lr: the trailing output of K1 on eri_lr_k{i}, one launch per
+        spin (the same contraction as the JAX package's
+        einsum("ikjl,...kl->...ij", eri_lr, dm))."""
+        key = f"eri_lr_k{i}"
+        if key not in theta:
+            raise NotImplementedError(
+                "not ported yet: long-range exchange without a dense "
+                f"attenuated ERI ({key!r}); periodic range separation is "
+                "ROADMAP A14")
+        if dm.ndim == 3:
+            return torch.stack([self._k_lr(theta, d, i) for d in dm])
+        return ds_jk(theta[key], dm.contiguous())[0]
 
-    def fock_from_parts(self, dm, j, k, theta):
+    def lr_parts(self, dm, theta):
+        """[K_lr of each term of xc.exx_lr] at dm."""
+        return [self._k_lr(theta, dm, i)
+                for i in range(len(self.xc.exx_lr))]
+
+    def fock_from_parts(self, dm, j, k, theta, klr=None):
         vxc = vxc_matrix(self.xc, dm, theta["grid"], self.polarized,
                          xcparams=theta.get("xc_params"))
+        if klr is None:
+            klr = self.lr_parts(dm, theta)
         f = theta["hcore"] + j
         hyb = self.xc.exx_fraction
-        if self.polarized:
-            f = f[None] + vxc
-            if hyb != 0.0:
-                f = f - hyb * k
-        else:
-            f = f + vxc
-            if hyb != 0.0:
-                f = f - 0.5 * hyb * k
-        for i, _ in enumerate(self.xc.exx_lr):
-            f = f - self._k_lr(theta, dm, i)
+        # restricted: dm counts both spins, so each exchange takes half
+        half = 1.0 if self.polarized else 0.5
+        f = (f[None] if self.polarized else f) + vxc
+        if hyb != 0.0:
+            f = f - half * hyb * k
+        for (c, _), kl in zip(self.xc.exx_lr, klr):
+            f = f - half * c * kl
         return f
 
-    def energy_from_parts(self, dm, j, k, theta, exc=None):
-        """Total energy from precomputed J/K; `exc` is the XC energy when the
-        caller already has it (else one more grid pass computes it)."""
+    def energy_from_parts(self, dm, j, k, theta, exc=None, klr=None):
+        """Total energy from precomputed J/K (and K_lr, else computed here);
+        `exc` is the XC energy when the caller already has it (else one
+        more grid pass computes it)."""
         dmt = self.dm_tot(dm)
         e1 = torch.einsum("ij,ij->", theta["hcore"], dmt)
         ej = 0.5 * torch.einsum("ij,ij->", j, dmt)
         if exc is None:
             exc = exc_energy(self.xc, dm, theta["grid"], self.polarized,
                              xcparams=theta.get("xc_params"))
+        if klr is None:
+            klr = self.lr_parts(dm, theta)
         e = e1 + ej + exc + theta["enuc"]
+        # polarized: 1/2 sum_s <K_s, D_s>; restricted: 1/4 <K, D>
+        quarter = 0.5 if self.polarized else 0.25
         hyb = self.xc.exx_fraction
         if hyb != 0.0:
-            if self.polarized:
-                e = e - 0.5 * hyb * torch.einsum("sij,sij->", k, dm)
-            else:
-                e = e - 0.25 * hyb * torch.einsum("ij,ij->", k, dm)
-        for i, _ in enumerate(self.xc.exx_lr):
-            e = e - self._k_lr(theta, dm, i)
+            e = e - quarter * hyb * torch.einsum("...ij,...ij->", k, dm)
+        for (c, _), kl in zip(self.xc.exx_lr, klr):
+            e = e - quarter * c * torch.einsum("...ij,...ij->", kl, dm)
         return e

@@ -46,9 +46,9 @@ class SCFOptions(NamedTuple):
     mixed_maxiter: int = 40
     # PBC exact-exchange divergence treatment; ignored for molecules
     exxdiv: str = "ewald"
-    # initial guess above the in-graph size of the JAX package: "sad" is the
-    # default there; the port takes "gwh" (generalized Wolfsberg-Helmholtz
-    # Fock) until the grid and XC stack bring the atomic LDA that SAD runs
+    # initial guess at and above qccalc.GUESS_NAO: "sad" (superposition of
+    # atomic densities, qccalc.sad_dm0) or "gwh" (generalized
+    # Wolfsberg-Helmholtz Fock); smaller systems start from the core guess
     guess: str = "sad"
     # stall guard: stop when the error has not improved for this many
     # iterations (the loop returns the BEST iterate seen, not the last).

@@ -13,8 +13,11 @@ for f64 emulation and remote compiles on the TPU. The port has one loop in
 float64 with the meaning of the small-system solver:
   f0 -> diis_solve(step_and_err) -> dm_from_fock(f_star) -> energy.
 Both take the dense route (eri_dense in the exchange layout eri_k); KS adds
-the grid tables. Periodic systems, density fitting, range-separated
-hybrids, the variational mode and the SAD guess are not ported yet.
+the grid tables, and a range-separated hybrid one erf-attenuated ERI per
+distinct omega in the same layout. Above GUESS_NAO the SCF starts from the
+superposition of atomic densities (sad_dm0), as in the JAX package.
+Periodic systems, density fitting and the variational mode are not ported
+yet.
 
 Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
 params in the autograd graph (one-electron integrals, the in-graph
@@ -30,20 +33,24 @@ from __future__ import annotations
 import time
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..ops.eri import eri_dense, screened_pair_classes
+from ..ops.shellstruct import nsph
 from ..utils.config import config
 from ..utils.datastruct import SpinParam
 from ..utils.logger import log
 from ..xc import get_xc
+from ..xc.custom import CustomXC
 from ..xc.integrate import setup_grid_theta
 from .engine import HFEngine, KSEngine
 from .fixed_point import SCFOptions, diis_solve, implicit_fixed_point
 from .hamilton import build_core_theta
 
-# at and above this nao the JAX package starts from SAD instead of the core
-# guess (its host-driven route); the port starts from the GWH Fock there
+# at and above this nao the SCF starts from the Fock matrix of the SAD
+# density (guess="sad", the default) or the GWH Fock (guess="gwh"); below it
+# from the core guess, as the JAX package's two routes do
 GUESS_NAO = 96
 
 
@@ -101,25 +108,52 @@ class SCF_QCCalc:
                                 else mol._t(mol.efield_grad))
         if mol.efield_grad2 is not None:
             p["efield_grad2"] = mol._t(mol.efield_grad2)
+        if getattr(self, "_xc_params", None) is not None:
+            p["xc_params"] = self._xc_params
         return p
 
     # --- the functional core -------------------------------------------
     def _start_fock(self, theta):
         """Initial Fock: the core guess (dm0 = 0, so F = hcore) below
-        GUESS_NAO, as the JAX package does there; above it the GWH Fock
-        where the JAX package would take SAD."""
+        GUESS_NAO; above it F(dm0) of the SAD density, or the GWH Fock for
+        guess="gwh", when SAD fails (sad_dm0 raises ValueError: an element
+        past the aufbau table or a non-finite atomic density; remembered per
+        calc) or when F(dm0) is not finite. Any other error of the atomic
+        SCFs (a kernel's build or launch among them) propagates.
+        stats['guess'] says which; stats['sad_s'] (part of scf_s) the
+        seconds of the atomic SCFs."""
         eng, opts = self.engine, self.opts
-        nao = self.mol.meta.nao
+        mol = self.mol
+        nao = mol.meta.nao
         if nao < GUESS_NAO:
             shape = (2, nao, nao) if eng.polarized else (nao, nao)
-            dm0 = torch.zeros(shape, dtype=self.mol.dtype,
-                              device=self.mol.device)
+            dm0 = torch.zeros(shape, dtype=mol.dtype, device=mol.device)
+            self.stats["guess"] = "core"
             return eng.fock(dm0, theta)
-        if opts.guess == "sad":
-            # "sad" is the default of SCFOptions: sad_dm0 (atomic KS-LDA
-            # calculations) is not ported yet
-            log("guess='sad': sad_dm0 is not ported yet (the next slice); "
-                "taking the GWH Fock")
+        if opts.guess == "sad" and not getattr(self, "_sad_failed", False):
+            d0 = getattr(self, "_sad_dm0", None)
+            if d0 is None:
+                t0 = time.perf_counter()
+                try:
+                    d0 = sad_dm0(mol)
+                except ValueError as ex:   # exotic Z, or a non-finite atom
+                    log(f"SAD guess failed ({ex}); using GWH", level=0)
+                    self._sad_failed = True
+                    self.stats["guess"] = "gwh"
+                    return gwh_fock(theta, eng.polarized)
+                self._sync()
+                self._sad_dm0 = d0   # one set of atomic SCFs per calc
+                self.stats.update(
+                    sad_s=time.perf_counter() - t0,
+                    sad_elements=sorted({ab.atomz for ab in mol.atombases}))
+            if eng.polarized:
+                d0 = torch.stack([0.5 * d0, 0.5 * d0])
+            f = eng.fock(d0, theta)
+            if bool(torch.isfinite(f).all()):
+                self.stats["guess"] = "sad"
+                return f
+            log("SAD initial Fock not finite; using GWH", level=0)
+        self.stats["guess"] = "gwh"
         return gwh_fock(theta, eng.polarized)
 
     def _solver(self, theta, dm0=None):
@@ -303,8 +337,10 @@ def _floats(tree):
     return []
 
 
-def _dense_route(mol, variational, opts, what):
-    """Refuse what the dense route of the port does not cover yet."""
+def _dense_route(mol, variational, opts, what, n_eri: int = 1):
+    """Refuse what the dense route of the port does not cover yet; n_eri
+    dense nao^4 tensors (eri_k and the attenuated ones of a range-separated
+    hybrid) count against config.DENSE_ERI_BYTES_LIMIT together."""
     if hasattr(mol, "lattice"):
         raise NotImplementedError(
             f"not ported yet: periodic {what} (ROADMAP A14)")
@@ -314,21 +350,40 @@ def _dense_route(mol, variational, opts, what):
     if opts is not None and opts.guess not in ("sad", "gwh"):
         raise ValueError(f"unknown initial guess {opts.guess!r}")
     nao = mol.meta.nao
-    if nao ** 4 * 8 > config.DENSE_ERI_BYTES_LIMIT:
+    limit = config.DENSE_ERI_BYTES_LIMIT
+    need = n_eri * nao ** 4 * 8
+    if need > limit:
+        what_needs = (f"nao = {nao} needs {need} bytes of dense ERI"
+                      if n_eri == 1 else
+                      f"range-separated exchange at nao = {nao} needs "
+                      f"{n_eri} dense ERI tensors ({need} bytes)")
+        other = ("the blocked/streamed J/K route is ROADMAP A12"
+                 if n_eri == 1 else
+                 "its other routes are density fitting (ROADMAP A11) and "
+                 "the blocked/streamed J/K route (ROADMAP A12)")
         raise NotImplementedError(
-            f"not ported yet: nao = {nao} needs {nao ** 4 * 8} bytes of dense "
-            f"ERI, above the {config.DENSE_ERI_BYTES_LIMIT}-byte limit of the "
-            "dense route; the blocked/streamed J/K route is ROADMAP A12")
+            f"not ported yet: {what_needs}, above the {limit}-byte limit "
+            f"of the dense route; {other}")
 
 
-def _dense_theta(mol, params, occ, stats, grid=None, family=None):
+def _dense_theta(mol, params, occ, stats, grid=None, family=None,
+                 omegas=()):
     """theta of the dense route: one-electron integrals, eri_k, occupations
-    and, for KS, the grid tables. Stage seconds go into `stats`."""
+    and, for KS, the grid tables, the xc_params and one erf-attenuated
+    eri_lr_k{i} per omega. Each nao^4 tensor is built, laid out and its
+    J-layout intermediate freed before the next build starts. Stage
+    seconds go into `stats`."""
     dev = mol.device
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def exchange_layout(omega=None):
+        eri = eri_dense(mol.meta, params["basis"], screened=scr, omega=omega)
+        out = eri.permute(0, 2, 1, 3).contiguous()
+        del eri
+        return out
     t0 = time.perf_counter()
     theta = build_core_theta(mol.meta, params["basis"], params["atomzs"],
                              efield=params.get("efield"),
@@ -337,9 +392,8 @@ def _dense_theta(mol, params, occ, stats, grid=None, family=None):
                              with_eri=False)
     sync()
     t1 = time.perf_counter()
-    eri = eri_dense(mol.meta, params["basis"], screened=_screened(mol))
-    theta["eri_k"] = eri.permute(0, 2, 1, 3).contiguous()
-    del eri
+    scr = _screened(mol)
+    theta["eri_k"] = exchange_layout()
     theta["occ"] = occ
     sync()
     t2 = time.perf_counter()
@@ -347,8 +401,18 @@ def _dense_theta(mol, params, occ, stats, grid=None, family=None):
     if grid is not None:
         theta["grid"] = setup_grid_theta(mol.meta, params["basis"], grid,
                                          family=family)
+        theta["xc_params"] = params.get("xc_params")
         sync()
         times["grid_s"] = time.perf_counter() - t2
+    if omegas:
+        t3 = time.perf_counter()
+        for i, w in enumerate(omegas):
+            t = exchange_layout(omega=w)
+            # K1 counts its launches on these tensors under this tag
+            t.jk_tag = "eri_lr"
+            theta[f"eri_lr_k{i}"] = t
+        sync()
+        times["eri_lr_s"] = time.perf_counter() - t3
     if stats is not None:
         stats.update(times)
     log("theta built: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()))
@@ -378,25 +442,86 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
 def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
        variational: bool = False,
        opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
-    """Kohn-Sham front end: LDA and GGA functionals, hybrids included
-    (B3LYP, PBE0, ...), restricted or polarized, on the dense route of HF
-    plus the grid tables of mol.setup_grid(). A GGA on the card runs the
-    grid kernels K2/K3 in every Fock build and K1 for J and K."""
-    _dense_route(mol, variational, opts, "Kohn-Sham")
+    """Kohn-Sham front end: LDA, GGA and meta-GGA functionals, hybrids
+    (B3LYP, PBE0, TPSSh, ...), range-separated hybrids (CAM-B3LYP, LC-BLYP,
+    lr_hf(omega) expressions) and CustomXC functionals, restricted or
+    polarized, on the dense route of HF plus the grid tables of
+    mol.setup_grid(). On the card every Fock build runs K1 for J and K (and
+    once more per omega for the long-range K), and K2/K3 for the density
+    and V_xc of a GGA or meta-GGA. A CustomXC's parameters are
+    differentiable inputs: energy_grad()['xc_params']."""
     xc = get_xc(xc)
-    if xc.exx_lr:
-        raise NotImplementedError(
-            "not ported yet: range-separated hybrids (ROADMAP A10)")
-    if xc.family > 2:
-        raise NotImplementedError(
-            "not ported yet: meta-GGA functionals (ROADMAP A10)")
+    _dense_route(mol, variational, opts, "Kohn-Sham",
+                 n_eri=1 + len(xc.exx_lr))
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     grid = mol.setup_grid()
+    omegas = tuple(w for _, w in xc.exx_lr)
 
     def build_theta(params, stats=None):
         return _dense_theta(mol, params, occ, stats, grid=grid,
-                            family=xc.family)
+                            family=xc.family, omegas=omegas)
 
-    return SCF_QCCalc(mol, KSEngine(xc, polarized=polarized),
+    calc = SCF_QCCalc(mol, KSEngine(xc, polarized=polarized),
                       build_theta=build_theta, opts=opts or SCFOptions())
+    # the NN parameters of a CustomXC are differentiable inputs
+    if isinstance(xc, CustomXC):
+        calc._xc_params = {xc.key: xc.init_params}
+    return calc
+
+
+# aufbau shell order (l, degeneracy) of the SAD occupations, through 5p
+_SAD_AUFBAU = [(0, 1), (0, 1), (1, 3), (0, 1), (1, 3), (0, 1), (2, 5),
+               (1, 3), (0, 1), (2, 5), (1, 3)]
+
+
+def _sad_occ(z: int, nao: int):
+    """Spherically averaged aufbau occupations of a neutral atom over nao
+    orbitals: each (sub)shell's electrons spread evenly over its degenerate
+    orbitals, so the atomic density is rotation-invariant."""
+    w = []
+    rem = float(z)
+    for _, deg in _SAD_AUFBAU:
+        if rem <= 0 or len(w) >= nao:
+            break
+        take = min(rem, 2.0 * deg)
+        w += [take / deg] * deg
+        rem -= take
+    if rem > 1e-9:
+        raise ValueError(f"SAD aufbau table too short for Z={z}")
+    return w[:nao] + [0.0] * (nao - len(w))
+
+
+def sad_dm0(mol, xc="lda_x"):
+    """Superposition-of-atomic-densities density matrix (nao, nao) on the
+    molecule's device. Each unique (element, basis) runs one small
+    spin-averaged, fractionally occupied atomic KS-LDA in the molecule's
+    basis (grid level 1, from the core guess); the atomic densities are
+    assembled block-diagonally (the AO blocks are contiguous per atom in
+    pack_basis order)."""
+    from ..system.mol import Mol
+    cache = {}
+    nao = mol.meta.nao
+    dm = torch.zeros((nao, nao), dtype=mol.dtype, device=mol.device)
+    off = 0
+    for ab in mol.atombases:
+        na = sum(nsph(b.angmom) for b in ab.bases)
+        key = (int(ab.atomz),
+               tuple((b.angmom, tuple(map(float, np.asarray(b.alphas))))
+                     for b in ab.bases))
+        if key not in cache:
+            z = int(ab.atomz)
+            amol = Mol((np.array([float(z)]), np.zeros((1, 3))),
+                       basis={z: list(ab.bases)}, spin=0,
+                       orb_weights=_sad_occ(z, na), grid=1,
+                       device=mol.device)
+            qa = KS(amol, xc=xc,
+                    opts=SCFOptions(mixed=False, guess="gwh")).run()
+            dm_a = qa.aodm()
+            if not bool(torch.isfinite(dm_a).all()):
+                raise ValueError(
+                    f"SAD atomic SCF for Z={z} gave a non-finite density")
+            cache[key] = dm_a
+        dm[off:off + na, off:off + na] = cache[key]
+        off += na
+    return dm

@@ -20,9 +20,12 @@ class _Config:
     # peak of eri_dense is several times larger: on an H100, benzene/def2-SVP,
     # 512 MiB here gave a 7.6 GiB peak and the same build time as 1 GiB
     ERI_R_BYTES: int = 512 * 1024 ** 2
-    # a dense nao^4 f64 ERI tensor above this many bytes is refused
-    # (80 GB card: the exchange-layout tensor plus the build's temporaries
-    # take about 3x the tensor itself)
+    # a dense nao^4 f64 ERI tensor above this many bytes is refused (80 GB
+    # card). Measured peak of a B3LYP SCF on an H100: 2.81x the tensor at
+    # nao = 208 (42.0 GB for 15.0 GB: the symmetrisation and the exchange
+    # layout each hold two tensors), 6.4x at nao = 114 (8.7 GB), where the
+    # build's fixed-size temporaries weigh more; range separation adds one
+    # tensor per omega (KS counts them against this limit together)
     DENSE_ERI_BYTES_LIMIT: int = 16 * 1024 ** 3
     # verbosity: 0 silent, 1 progress lines, 2 debug
     VERBOSE: int = 0    # overridden by env DQC_TPU_VERBOSE at import

@@ -1,5 +1,5 @@
 """NaN-safe / differentiable helper ops (counterpart of
-dqc_tpu/utils/safeops.py): occnumber, fmax, safepow, safenorm, safe_cdist,
+dqc_tpu/utils/safeops.py): occnumber, fmax, fmin, fclip, safepow, safenorm, safe_cdist,
 and the density floors of the XC functionals."""
 from __future__ import annotations
 
@@ -38,6 +38,17 @@ def fmax(x, c: float):
     """max(x, c) with the gradient rule of jnp.maximum: at a tie the
     gradient is shared half and half (torch.clamp would pass all of it)."""
     return torch.maximum(x, x.new_tensor(c))
+
+
+def fmin(x, c: float):
+    """min(x, c) with the gradient rule of jnp.minimum (shared at a tie)."""
+    return torch.minimum(x, x.new_tensor(c))
+
+
+def fclip(x, lo: float, hi: float):
+    """jnp.clip(x, lo, hi): max then min, each with the shared-tie rule
+    (torch.clamp would pass the whole gradient at either bound)."""
+    return fmin(fmax(x, lo), hi)
 
 
 def safepow(x, p, eps: float = EPS):

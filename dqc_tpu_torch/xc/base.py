@@ -103,3 +103,21 @@ class HFExchangeXC(BaseXC):
     def edens_unpol(self, rho, **kw):
         return torch.zeros_like(rho)
 
+
+
+class LRHFExchangeXC(BaseXC):
+    """Long-range exact exchange with the erf(omega r12)/r12 kernel:
+    contributes only exx_lr (the attenuated K build is the SCF engine's).
+    "0.19*hf + 0.46*lr_hf(0.33) + <short-range DFT part>" is the CAM-B3LYP
+    exchange split; "0.25*hf + -0.25*lr_hf(0.11) + ..." a screened
+    (short-range only) exact exchange."""
+    family = 1
+
+    def __init__(self, omega: float):
+        self.exx_lr = ((1.0, float(omega)),)
+
+    def edens_pol(self, rho_u, rho_d, **kw):
+        return torch.zeros_like(rho_u)
+
+    def edens_unpol(self, rho, **kw):
+        return torch.zeros_like(rho)

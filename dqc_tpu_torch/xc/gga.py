@@ -3,18 +3,18 @@
 
 Formulas from: Perdew, Burke, Ernzerhof PRL 77, 3865 (1996); Becke PRA 38,
 3098 (1988); Lee, Yang, Parr PRB 37, 785 (1988) in the Miehlich form
-(CPL 157, 200 (1989)); Handy & Cohen, Mol. Phys. 99, 403 (2001). The
-short-range GGA_X_ITYH_B88 waits for the range-separated hybrids
-(ROADMAP A10).
+(CPL 157, 200 (1989)); Handy & Cohen, Mol. Phys. 99, 403 (2001); the
+short-range B88 of the range-separated hybrids by the attenuation of
+Iikura, Tsuneda, Yanai & Hirao, JCP 115, 3540 (2001).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from ..utils.safeops import RHO_EPS, SIG_EPS, fmax, safepow
+from ..utils.safeops import RHO_EPS, SIG_EPS, fclip, fmax, safepow
 from .base import BaseXC
-from .lda import LDA_C_PW, _zeta
+from .lda import LDA_C_PW, _erf_attenuation, _zeta
 
 
 class GGA_X_PBE(BaseXC):
@@ -108,13 +108,30 @@ class GGA_X_B88(BaseXC):
 
 
 class GGA_X_ITYH_B88(GGA_X_B88):
-    """Short-range (erfc-complement) B88 exchange of the range-separated
-    hybrids: not ported yet."""
+    """Short-range (erfc-complement) B88 exchange by the ITYH attenuation
+    (JCP 115, 3540 (2001), eqs 4-8; libxc gga_x_ityh), the DFT-exchange
+    part of CAM-B3LYP and LC-BLYP.
+
+    Per spin: E_x^SR = sum_s int e_s(n_s, sigma_ss) F(a_s), with the GGA
+    exchange written e_s = -(1/2) n_s^{4/3} K_s, a_s = w sqrt(K_s) /
+    (6 sqrt(pi) n_s^{1/3}), and F the attenuation of lda._erf_attenuation
+    (whose large-a series keeps omega -> inf at zero, not at full B88),
+    clipped to [0, 1]."""
 
     def __init__(self, omega: float):
-        raise NotImplementedError(
-            "not ported yet: gga_x_ityh_b88, the short-range B88 of the "
-            "range-separated hybrids (ROADMAP A10)")
+        self.omega = float(omega)
+
+    @staticmethod
+    def _att(a):
+        return fclip(_erf_attenuation(fmax(a, 1e-10)), 0.0, 1.0)
+
+    def _e_spin(self, ns, sigma_ss):
+        e_full = GGA_X_B88._e_spin(self, ns, sigma_ss)
+        n43 = safepow(ns, 4.0 / 3.0, RHO_EPS)
+        n13 = safepow(ns, 1.0 / 3.0, RHO_EPS)
+        k = fmax(-2.0 * e_full / n43, 1e-15)
+        a = self.omega * torch.sqrt(k) / (6.0 * np.sqrt(np.pi) * n13)
+        return e_full * self._att(a)
 
 
 class GGA_C_LYP(BaseXC):

@@ -123,7 +123,9 @@ def _screen(mask, x, fill=1.0):
 def _edens_at(xc, dens, polarized: bool, xcparams=None):
     """Energy density at every grid point, with the double-where screen:
     points at or below DENS_THRESHOLD get harmless inputs and a zero
-    result, so their gradient is zero and never NaN."""
+    result, so their gradient is zero and never NaN. A parameterised
+    functional (xc/custom.CustomXC) is called through apply_pol/apply_unpol
+    with the xc_params dict of theta."""
     fam = xc.family
     if polarized:
         du, dd = dens["u"], dens["d"]
@@ -141,7 +143,10 @@ def _edens_at(xc, dens, polarized: bool, xcparams=None):
                       tau_d=_screen(mask, dd["tau"]))
         ru = _screen(mask, du["rho"])
         rd = _screen(mask, dd["rho"])
-        e = xc.edens_pol(ru, rd, **kw)
+        if hasattr(xc, "apply_pol"):
+            e = xc.apply_pol(xcparams, ru, rd, **kw)
+        else:
+            e = xc.edens_pol(ru, rd, **kw)
     else:
         mask = dens["rho"] > DENS_THRESHOLD
         kw = {}
@@ -150,7 +155,11 @@ def _edens_at(xc, dens, polarized: bool, xcparams=None):
         if fam >= 4:
             kw.update(lapl=_screen(mask, dens["lapl"]),
                       tau=_screen(mask, dens["tau"]))
-        e = xc.edens_unpol(_screen(mask, dens["rho"]), **kw)
+        r = _screen(mask, dens["rho"])
+        if hasattr(xc, "apply_unpol"):
+            e = xc.apply_unpol(xcparams, r, **kw)
+        else:
+            e = xc.edens_unpol(r, **kw)
     return torch.where(mask, e, torch.zeros_like(e))
 
 
@@ -194,6 +203,17 @@ def _unflat(d, it):
             for k, v in d.items()}
 
 
+def _detached(x):
+    """x (nested dicts, lists, tensors) with every tensor detached."""
+    if isinstance(x, torch.Tensor):
+        return x.detach()
+    if isinstance(x, dict):
+        return {k: _detached(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(_detached(v) for v in x)
+    return x
+
+
 def _tensors(x):
     if isinstance(x, torch.Tensor):
         return [x]
@@ -214,10 +234,10 @@ def _pointwise_adjoints(xc, dens, w, polarized, xcparams):
     vbar is taken with create_graph=True on the densities as they are, so
     V_xc carries the second derivative of the functional (f_xc) in dm, in
     the AO tables and in the weights, and E_xc its first. Otherwise (the SCF
-    loop runs under no_grad) the densities are detached first and nothing
-    upstream of them is differentiated. Either way the double-where screen
-    of _edens_at gives dead lanes harmless inputs, so no derivative order
-    sees a NaN."""
+    loop runs under no_grad) the densities, the weights and the xc_params
+    of a CustomXC are detached first and nothing upstream of them is
+    differentiated. Either way the double-where screen of _edens_at gives
+    dead lanes harmless inputs, so no derivative order sees a NaN."""
     flat = _flat(dens)
     keep = torch.is_grad_enabled() and any(
         t.requires_grad for t in flat + [w] + _tensors(xcparams))
@@ -228,6 +248,7 @@ def _pointwise_adjoints(xc, dens, w, polarized, xcparams):
                 for x in flat))
         else:
             leaves, w = _detached_leaves(dens), w.detach()
+            xcparams = _detached(xcparams)
         exc = torch.sum(_edens_at(xc, leaves, polarized, xcparams) * w)
         flat = _flat(leaves)
         grads = torch.autograd.grad(exc, flat, allow_unused=True,

@@ -335,3 +335,67 @@ def test_forces_and_hvp_on_the_card_match_the_cpu():
             assert all(n > 0 for row in launches for n in row), launches
     assert (out["cuda"][0] - out["cpu"][0]).abs().max().item() <= 1e-10
     assert (out["cuda"][1] - out["cpu"][1]).abs().max().item() <= 1e-9
+
+
+def test_k1_on_the_erf_attenuated_eri_matches_plain_version():
+    """K1 on the erf-attenuated ERI of H2O/def2-SVP (omega 0.33) in the
+    exchange layout: the long-range K of the range-separated hybrids,
+    counted under its tag; the dm cotangent's pair-symmetry probe holds."""
+    _need_card()
+    from dqc_tpu_torch.ops.eri import eri_dense
+    mol = dqt.Mol(H2O, basis="def2-svp")
+    t = eri_dense(mol.meta, mol.params, omega=0.33).permute(
+        0, 2, 1, 3).contiguous()
+    t.jk_tag = "eri_lr"
+    n = t.shape[0]
+    rng = np.random.default_rng(5)
+    dm = rng.standard_normal((n, n))
+    dm = torch.as_tensor(dm + dm.T, device="cuda")
+    hopper_jk.ds_jk.launches_by_tag.clear()
+    out = hopper_jk.ds_jk(t, dm)
+    ref = hopper_jk.ds_jk_reference(t, dm)
+    assert hopper_jk.ds_jk.launches_by_tag == {"eri_lr": 1}
+    for a, r in zip(out, ref):
+        assert (a - r).abs().max().item() <= 1e-10 * r.abs().max().item()
+    hopper_jk._assert_pair_symmetric(t)
+
+
+def test_cam_b3lyp_gradient_on_the_card_matches_central_differences():
+    """CAM-B3LYP H2O/STO-3G forces by implicit differentiation on the card
+    (K1 on eri_k and eri_lr_k0 in the SCF and in the gradient) against
+    central differences of the energy (h = 1e-4 Bohr): 1e-7 Ha/Bohr."""
+    _need_card()
+    desc = "O 0 0 0.2217; H 0 1.4309 -0.8867; H 0.1 -1.4309 -0.8867"
+    mol = dqt.Mol(desc, basis="sto-3g", grid=1)
+    qc = dqt.KS(mol, xc="camb3lyp", opts=dqt.SCFOptions(tol=1e-11))
+    hopper_jk.ds_jk.launches_by_tag.clear()
+    g = qc.energy_grad()["basis"]["atompos"]
+    assert hopper_jk.ds_jk.launches_by_tag.get("eri_lr", 0) > 0
+    p0 = qc._all_params()
+    pos0 = p0["basis"]["atompos"]
+    h = 1e-4
+    for atom, axis in ((0, 2), (2, 0)):
+        es = []
+        for sgn in (1, -1):
+            pos = pos0.clone()
+            pos[atom, axis] += sgn * h
+            with torch.no_grad():
+                es.append(float(qc.energy_fn(
+                    dict(p0, basis=dict(p0["basis"], atompos=pos)))))
+        fd = (es[0] - es[1]) / (2 * h)
+        assert abs(fd - float(g[atom, axis])) <= 1e-7
+
+
+def test_k_lr_on_the_card_launches_k1_or_raises():
+    _need_card()
+    from dqc_tpu_torch.scf.engine import KSEngine
+    eng = KSEngine(getxc.get_xc("camb3lyp"))
+    t = _eri_like(7, seed=3).permute(0, 2, 1, 3).contiguous()
+    dm = torch.eye(7, dtype=torch.float64, device="cuda")
+    before = hopper_jk.ds_jk.launches
+    k = eng._k_lr({"eri_lr_k0": t}, dm, 0)
+    assert hopper_jk.ds_jk.launches == before + 1
+    assert torch.allclose(k, hopper_jk.ds_jk_reference(t, dm)[0],
+                          rtol=1e-12, atol=0)
+    with pytest.raises(ValueError):
+        eng._k_lr({"eri_lr_k0": t}, dm.cpu(), 0)

@@ -143,16 +143,30 @@ def test_ks_of_an_lda_matches_jax_functional_energy():
     assert abs(float(t) - float(j)) <= 1e-11
 
 
-def test_ks_routes_not_ported_yet_raise(monkeypatch):
+def test_ks_takes_meta_ggas_and_range_separation_on_the_dense_route(
+        monkeypatch):
+    """Meta-GGAs and range-separated hybrids build their theta (the grid's
+    ao_lapl, one attenuated eri_lr_k per omega); the variational mode, a
+    dense ERI above the limit, and range separation whose tensors do not
+    fit the dense route together still raise, naming their items."""
     mol = _port_mol("b3lyp-restricted")
-    with pytest.raises(NotImplementedError, match="A10"):
-        dqt.KS(mol, xc="camb3lyp")
-    with pytest.raises(NotImplementedError, match="A10"):
-        dqt.KS(mol, xc="scan")
+    qc = dqt.KS(mol, xc="camb3lyp")
+    th = qc._build_theta(qc._all_params())
+    assert th["eri_lr_k0"].shape == th["eri_k"].shape
+    assert not torch.equal(th["eri_lr_k0"], th["eri_k"])
+    qc = dqt.KS(mol, xc="scan")
+    assert "ao_lapl" in qc._build_theta(qc._all_params())["grid"]
     with pytest.raises(NotImplementedError, match="A13"):
         dqt.KS(mol, xc="pbe", variational=True)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tengine.KSEngine(tgetxc.get_xc("pbe"))._k_lr({}, None, 0)
+    # the long-range K needs its attenuated tensor in theta
+    with pytest.raises(NotImplementedError, match="A14"):
+        tengine.KSEngine(tgetxc.get_xc("camb3lyp"))._k_lr(
+            {}, torch.zeros(2, 2), 0)
+    nao = mol.meta.nao
+    monkeypatch.setattr(tqc.config, "DENSE_ERI_BYTES_LIMIT", nao ** 4 * 8)
+    dqt.KS(mol, xc="pbe")                        # one tensor still fits
+    with pytest.raises(NotImplementedError, match="A11.*A12"):
+        dqt.KS(mol, xc="camb3lyp")               # two do not
     monkeypatch.setattr(tqc.config, "DENSE_ERI_BYTES_LIMIT", 100)
     with pytest.raises(NotImplementedError, match="A12"):
         dqt.KS(mol, xc="pbe")
