@@ -13,7 +13,11 @@ benzene/def2-SVP (nao = 114; grid level 2, 78,144 points) from the SAD
 start, and their forces; CAM-B3LYP (long-range exchange through K1 on the
 erf-attenuated ERI), SCAN (a meta-GGA) and a neural CustomXC with its
 parameter gradient on the same molecule; B3LYP on vitamin C/cc-pVDZ (nao =
-208, the dense route past nao 128). Any failed check or exception ends the
+208, the dense route past nao 128); then the density-fitted route
+(`mol.densityfit()`, autoaux): B3LYP and CAM-B3LYP on benzene against
+JAX-CPU anchors, its forces, the reference's vitamin C workload (LDA), a
+benzene dimer (nao 228) whose dense ERI the port refuses, and the O2
+triplet (UKS-LDA) against PySCF. Any failed check or exception ends the
 run with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
@@ -35,7 +39,11 @@ seconds, GMRES records, launches inside the gradient, peak memory),
 (with K1 on the erf tensor against its plain version and one steady
 iteration under the profiler), `meta_gga` (SCAN on benzene, and the PySCF
 anchors of SCAN exchange on CO and Li2), `nn_xc` (the parameter gradient
-against central differences), `vitamin_c`, `small`, `kernels` (K3's row
+against central differences), `vitamin_c`, `df_b3lyp`, `df_cam_b3lyp`
+(each with `parts`: the device time of RI-J, RI-K, K2, K3 and eigh at the
+converged dm, each under torch.profiler), `df_forces` and `df_forces_fd`,
+`df_vitamin_c`, `df_beyond_dense` (K2/K3 at nao 228 against their plain
+versions), `df_uks_o2`, `small`, `kernels` (K3's row
 also has its registers and spills from this run's ptxas report; every row
 its launches on every path, K1's also on the erf tensor: each path's own
 SCF, with those of the atomic SCFs of its SAD start apart), and as the last
@@ -62,11 +70,13 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import dqc_tpu_torch as dq                                    # noqa: E402
-from dqc_tpu_torch.ops import _nvcc, hopper_jk, hopper_xc     # noqa: E402
+from dqc_tpu_torch.ops import (                               # noqa: E402
+    _nvcc, hopper_jk, hopper_xc, integrals)
 from dqc_tpu_torch.ops.hopper_jk import ds_jk, ds_jk_reference  # noqa: E402
 from dqc_tpu_torch.ops.hopper_xc import (                     # noqa: E402
     ds_dens_gga, ds_dens_reference, ds_vxc_gga, ds_vxc_reference)
 from dqc_tpu_torch.scf import qccalc                         # noqa: E402
+from dqc_tpu_torch.scf.df import df_j, df_k                  # noqa: E402
 from dqc_tpu_torch.scf.eigh import safe_eigh                  # noqa: E402
 from dqc_tpu_torch.xc import integrate                        # noqa: E402
 
@@ -124,6 +134,48 @@ H -4.7222 -2.7845 0.8222; H -5.6716 -0.2763 2.8684;
 H -2.0785 -1.6104 -2.6430; H 0.0074 5.0941 1.2812;
 H -8.6971 -1.4445 0.0486; H 6.6186 -0.4860 -1.4846"""
 VITAMIN_C_NELEC = 92
+# the density-fitted route (mol.densityfit(), the generated autoaux basis,
+# naux = 1308 for benzene): JAX-CPU values of dqc_tpu.KS(benzene/def2-svp,
+# grid=2, xc, SCFOptions(mixed=False)) after mol.densityfit(), same
+# geometry, float64 on an x86-64 host, made by
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+#       df_b3lyp df_camb3lyp df_vitc
+# --factored: the JAX package's own pseudo-inverse fit, contracted in
+# factored form. Its df_j/df_k contract j3c with the explicit v_inv and lose
+# about eps * cond(j2c) to cancellation (ROADMAP queue C): without the flag
+# its B3LYP energy is 1.27e-5 Ha lower and its DIIS stops at a residual of
+# 2.8e-8, above its tol (451 s); the *_OWN_FIT_HA values are those runs,
+# recorded beside the gate, not gated.
+# B3LYP: 370 s, final residual 2.6e-9
+DF_ANCHOR_HA = -232.08457809495974
+DF_ANCHOR_OWN_FIT_HA = -232.08459083164493
+# CAM-B3LYP: 455 s, final residual 1.6e-9
+DF_CAM_ANCHOR_HA = -231.94101590265686
+# CAM-B3LYP without --factored: 496 s, its DIIS stopped at 7.4e-5
+DF_CAM_ANCHOR_OWN_FIT_HA = -231.94102981241718
+# vitamin C/cc-pVDZ, grid 2, densityfit(), lda_x+lda_c_pw (naux 2778,
+# metric ratio 7.6e-12): 578 s, final residual 3.5e-9
+VITC_DF_ANCHOR_HA = -679.4797900665019
+# what JAX_PLATFORMS=cpu python benchmarks/vitamin_c.py prints (the JAX
+# package's own harness, unedited: its own fit, its default options)
+VITC_DF_HARNESS_HA = -679.4798035743
+VITC_DF_GATE_HA = 1e-7
+# the second benzene of the dimer, shifted along z (Bohr). At this distance
+# the two still interact through their quadrupoles: coaxial, E_QQ =
+# 6 Theta_zz^2 / R^5 (Buckingham), 7.1e-7 Ha for B3LYP/STO-3G's Theta_zz =
+# -3.49 ea0^2, where E_dimer - 2 E_monomer on the DF route on the CPU is
+# 6.4e-7 Ha (1.9e-8 at 80 Bohr, against 2.2e-8: the R^-5 law). The gate
+# holds E_dimer - 2 E_monomer - E_QQ, with Theta_zz of the monomer's own
+# density, to DIMER_GATE_HA.
+DIMER_SHIFT_BOHR = 40.0
+DIMER_GATE_HA = 1e-6
+# O2 triplet, UKS-LDA on the DF route against PySCF (tests/test_scf.py:
+# test_uks_o2_df_anchor; the reference fits in def2-svp-jkfit, the port in
+# autoaux, and the gate covers both)
+O2_DF_PYSCF = ("O -1 0 0; O 1 0 0", "6-311++G**", 3, -149.259475, 1.3e-3)
+# what stats holds for the DF route (scf/qccalc._make_theta)
+DF_STATS = ("df_s", "coul2c_s", "coul3c_s", "coul3c_classes", "factor_s",
+            "naux", "metric_ratio", "naux_kept", "df_lr_s", "df_lr")
 
 ANGSTROM_TO_BOHR = 1.0 / 0.529177210903
 
@@ -437,6 +489,13 @@ def mirror_forces(F, axis):
     return G
 
 
+def symmetric_part(F):
+    """The average of benzene forces over the four images of x -> -x and
+    y -> -y."""
+    return 0.25 * (F + mirror_forces(F, 0) + mirror_forces(F, 1)
+                   + mirror_forces(mirror_forces(F, 0), 1))
+
+
 def grid_mirror_gaps(grid):
     """(max distance of a mirrored grid point to its nearest point, max
     relative weight gap between them) over the mirrors x -> -x, y -> -y."""
@@ -472,8 +531,7 @@ def forces(smi_line):
     peak = torch.cuda.max_memory_allocated()
     F = -g["basis"]["atompos"].detach().cpu().numpy()
     Fref = ref["force"]
-    Fref_sym = 0.25 * (Fref + mirror_forces(Fref, 0) + mirror_forces(Fref, 1)
-                       + mirror_forces(mirror_forces(Fref, 0), 1))
+    Fref_sym = symmetric_part(Fref)
     dE = abs(e - float(ref["energy"]))
     dF = float(np.abs(F - Fref_sym).max())
     mirror = max(float(np.abs(F - mirror_forces(F, ax)).max())
@@ -520,6 +578,14 @@ def forces(smi_line):
         fail(f"kernels inside the gradient: {launches}")
 
     # the second witness: central differences of energy_fn on the card
+    central_differences("forces_fd", calc, F)
+    return rec
+
+
+def central_differences(name, calc, F):
+    """Forces F of calc against central differences of energy_fn on the
+    card at FD_COMPONENTS (h = FD_STEP), emitted under `name`; fails above
+    FD_GATE."""
     p0 = calc._all_params()
     pos0 = p0["basis"]["atompos"]
     fd_rec = []
@@ -538,13 +604,12 @@ def forces(smi_line):
                        "force": float(F[atom, axis]),
                        "abs_diff": abs(fd - float(F[atom, axis])),
                        "scf_residuals": res})
-    emit({"forces_fd": {"step_bohr": FD_STEP, "components": fd_rec,
-                        "seconds": time.perf_counter() - t_fd}})
+    emit({name: {"step_bohr": FD_STEP, "components": fd_rec,
+                 "seconds": time.perf_counter() - t_fd}})
     for r in fd_rec:
         if not r["abs_diff"] <= FD_GATE:
-            fail(f"force of atom {r['atom']} axis {r['axis']}: "
+            fail(f"{name}: force of atom {r['atom']} axis {r['axis']}: "
                  f"{r['force']!r} vs central difference {r['fd']!r}")
-    return rec
 
 
 # the launches inside each call of sad_dm0 since reset_counts: the atomic
@@ -589,17 +654,18 @@ def path_counts():
     return {k: v - sad[k] for k, v in _all_counts().items()}
 
 
-def check_launches(name, eng, launches, per_it, builds):
+def check_launches(name, eng, launches, per_it, builds, df=False):
     """Gates on a restricted path's own launches. One steady iteration
     (per_it, measured by iteration_profile) launches K1 once, and once more
-    per omega of the long-range exchange, and K2 and K3 once for a GGA or
-    meta-GGA; the SCF launches that for each of its Fock builds, and one
-    more K1 pass (on each tensor) and one more K2 for its energy."""
+    per omega of the long-range exchange (none on the density-fitted route,
+    df), and K2 and K3 once for a GGA or meta-GGA; the SCF launches that for
+    each of its Fock builds, and one more K1 pass (on each tensor) and one
+    more K2 for its energy."""
     xc = getattr(eng, "xc", None)
-    n_lr = 0 if xc is None else len(xc.exx_lr)
+    n_lr = 0 if xc is None or df else len(xc.exx_lr)
     gga = int(xc is not None and xc.family >= 2)
-    want_it = {"ds_jk": 1 + n_lr, "ds_dens_gga": gga, "ds_vxc_gga": gga,
-               "ds_jk_eri_lr": n_lr}
+    want_it = {"ds_jk": 0 if df else 1 + n_lr, "ds_dens_gga": gga,
+               "ds_vxc_gga": gga, "ds_jk_eri_lr": n_lr}
     if per_it != want_it:
         fail(f"{name}: one iteration launched {per_it}, expected {want_it}")
     want = {k: builds * v + (0 if k == "ds_vxc_gga" else v)
@@ -612,16 +678,25 @@ def check_launches(name, eng, launches, per_it, builds):
 def plain_ks_energy(calc, dm):
     """The energy of a restricted KS calc at dm through the plain versions
     of all three kernels (J and K, each long-range K, rho and grad rho; the
-    lapl and tau of a meta-GGA are plain torch on either path)."""
+    lapl and tau of a meta-GGA are plain torch on either path, and so are
+    RI-J and RI-K on the density-fitted route)."""
     eng, theta = calc.engine, calc._theta
     grid = theta["grid"]
     with torch.no_grad():
-        k, j = ds_jk_reference(theta["eri_k"], dm)
-        klr = [ds_jk_reference(theta[f"eri_lr_k{i}"], dm)[0]
-               for i in range(len(eng.xc.exx_lr))]
-        ao, ag = grid["ao"], grid["ao_grad"]
-        rho, gdot = ds_dens_reference(ao, ag, dm)
-        dens = {"rho": rho, "grad": gdot}
+        if "df" in theta:
+            j, k = eng.jk_parts(dm, theta)
+            klr = eng.lr_parts(dm, theta)
+        else:
+            k, j = ds_jk_reference(theta["eri_k"], dm)
+            klr = [ds_jk_reference(theta[f"eri_lr_k{i}"], dm)[0]
+                   for i in range(len(eng.xc.exx_lr))]
+        ao = grid["ao"]
+        if eng.xc.family == 1:
+            dens = {"rho": torch.einsum("gi,gi->g", ao @ dm, ao)}
+        else:
+            ag = grid["ao_grad"]
+            rho, gdot = ds_dens_reference(ao, ag, dm)
+            dens = {"rho": rho, "grad": gdot}
         if eng.xc.family >= 4:
             gg = torch.einsum("dgi,dgi->g", torch.einsum("dgi,ij->dgj", ag, dm),
                               ag)
@@ -678,13 +753,16 @@ def iteration_profile(eng, theta, dm, smi_line):
         "card": smi_line}
 
 
-def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None):
+def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None,
+             gate=KS_GATE_HA):
     """One restricted KS path from Mol to the energy with the launch counts
     set to 0 just before it and read just after; the gates every KS path
-    shares: the SCF converged, the energy within KS_GATE_HA of its anchor
+    shares: the SCF converged, the energy within `gate` of its anchor
     (when it has one), the plain path within KS_PLAIN_GATE_HA, tr(D S) =
     nelec, the SAD start, the launches of one iteration and of the SCF
-    (check_launches). Returns (calc, record)."""
+    (check_launches). A molecule with densityfit() takes the DF route:
+    theta holds no eri_k, and K1 is launched by the SAD atoms only.
+    Returns (calc, record)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -704,13 +782,14 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None):
     profile = iteration_profile(calc.engine, theta, dm, smi_line)
     trace_ds = float(torch.einsum("ij,ji->", dm, theta["ovlp"]))
     iters = st["iterations"]
+    df = mol.dfinfo is not None
     rec = {"nao": mol.meta.nao, "ngrid": int(theta["grid"]["dvol"].shape[0]),
            "family": calc.engine.xc.family,
            "exx_fraction": calc.engine.xc.exx_fraction,
-           "exx_lr": calc.engine.xc.exx_lr,
+           "exx_lr": calc.engine.xc.exx_lr, "route": "df" if df else "dense",
            "guess": st.get("guess"), "sad_s": st.get("sad_s"),
            "sad_elements": st.get("sad_elements"),
-           "int1e_s": st["int1e_s"], "eri_dense_s": st["eri_s"],
+           "int1e_s": st["int1e_s"], "eri_dense_s": st.get("eri_s"),
            "eri_lr_s": st.get("eri_lr_s"), "grid_s": st["grid_s"],
            "scf_s": st["scf_s"], "iterations": iters,
            "s_per_iteration": (st["scf_s"] - st.get("sad_s", 0.0))
@@ -728,8 +807,12 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None):
     if not st["residual"] <= calc.opts.tol:
         fail(f"{name}: residual {st['residual']:.3e} above tol "
              f"{calc.opts.tol}")
-    if anchor is not None and abs(e - anchor) > KS_GATE_HA:
-        fail(f"{name}: energy {e!r} vs JAX-CPU anchor {anchor!r}")
+    if df:
+        rec.update({k: st[k] for k in DF_STATS if k in st})
+        if "eri_k" in theta or "eri_s" in st:
+            fail(f"{name}: the DF route built a dense ERI")
+    if anchor is not None and abs(e - anchor) > gate:
+        fail(f"{name}: energy {e!r} vs anchor {anchor!r} (gate {gate})")
     if abs(e - e_plain) > KS_PLAIN_GATE_HA:
         fail(f"{name}: kernel-path energy {e!r} vs plain-path {e_plain!r}")
     if abs(trace_ds - nelec) > 1e-8:
@@ -738,7 +821,7 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None):
         fail(f"{name}: the SCF started from {rec['guess']!r}, expected 'sad'")
     check_launches(name, calc.engine, launches,
                    profile["port_kernel_launches_per_iteration"],
-                   rec["fock_builds"])
+                   rec["fock_builds"], df=df)
     return calc, rec
 
 
@@ -904,6 +987,280 @@ def vitamin_c(smi_line):
     emit({"vitamin_c": rec})
     if n <= 128:
         fail(f"vitamin_c: nao = {n}, expected above 128")
+    return rec
+
+
+def df_parts(calc, smi_line, reps=5):
+    """Device time of each part of one steady DF iteration at the converged
+    dm: RI-J, RI-K (when the functional has exact exchange), RI-K on each
+    long-range fit, K2 and K3 (GGA), and eigh of the orthogonalised Fock
+    matrix; per call, under torch.profiler (device_ms: the kernels launched
+    in the part's labelled range) and by CUDA events (event_ms)."""
+    eng, theta = calc.engine, calc._theta
+    dm = calc.aodm().contiguous()
+    grid = theta["grid"]
+    parts = {"ri_j": lambda: df_j(theta["df"], dm)}
+    if eng.xc.exx_fraction != 0.0:
+        parts["ri_k"] = lambda: df_k(theta["df"], dm)
+    for i in range(len(eng.xc.exx_lr)):
+        parts[f"ri_k_lr{i}"] = lambda i=i: df_k(theta[f"df_lr{i}"], dm)
+    if eng.xc.family >= 2:
+        ao, ag = grid["ao"], grid["ao_grad"]
+        rho, gdot = ds_dens_reference(ao, ag, dm)
+        _, vbar = integrate._pointwise_adjoints(
+            eng.xc, {"rho": rho, "grad": gdot}, grid["dvol"], False, None)
+        vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+        parts["ds_dens_gga"] = lambda: ds_dens_gga(ao, ag, dm)
+        parts["ds_vxc_gga"] = lambda: ds_vxc_gga(ao, ag, vr, vg)
+    with torch.no_grad():
+        X = theta["X"]
+        f = eng.fock(dm, theta)
+        fo = X.T @ f @ X
+        fo = 0.5 * (fo + fo.T)
+    parts["eigh"] = lambda: torch.linalg.eigh(fo)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    out = {}
+    with torch.no_grad():
+        for fn in parts.values():
+            fn()
+        torch.cuda.synchronize()
+        # one profiler session, each part in its own labelled range; the
+        # range's device time is that of the kernels launched inside it
+        with torch.profiler.profile(activities=acts) as prof:
+            for name, fn in parts.items():
+                with torch.profiler.record_function(f"df_part:{name}"):
+                    for _ in range(reps):
+                        fn()
+                    torch.cuda.synchronize()
+        events = prof.key_averages()
+        for name, fn in parts.items():
+            evs = [e for e in events if e.key == f"df_part:{name}"]
+            # the host-side range sums its kernels' device time; without
+            # it, the device-side annotation's span
+            host = [e.device_time_total for e in evs
+                    if e.device_type == torch.autograd.DeviceType.CPU]
+            span = [e.self_device_time_total for e in evs
+                    if e.device_type == torch.autograd.DeviceType.CUDA]
+            us = (host[0] if host and host[0] > 0 else
+                  span[0] if span else None)
+            out[name] = {"device_ms": None if us is None
+                         else us / reps / 1e3,
+                         "event_ms": time_ms(fn, reps)}
+    b = theta["df"]["B"]
+    out["B_bytes"] = b.numel() * 8
+    out["B_shape"] = list(b.shape)
+    out["card"] = smi_line
+    return out
+
+
+def df_b3lyp(smi_line):
+    """B3LYP on benzene/def2-SVP after densityfit(): RI-J and RI-K each Fock
+    build, K2 and K3 on the grid, no dense ERI and no K1 outside SAD."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2).densityfit()
+    calc, rec = ks_phase("df_b3lyp", mol, "b3lyp", DF_ANCHOR_HA, smi_line)
+    rec["dense_anchor_ha"] = KS_ANCHOR_HA
+    rec["df_minus_dense_anchor_ha"] = rec["energy_ha"] - KS_ANCHOR_HA
+    rec["own_fit_anchor_ha"] = DF_ANCHOR_OWN_FIT_HA
+    rec["energy_minus_own_fit_anchor_ha"] = (rec["energy_ha"]
+                                             - DF_ANCHOR_OWN_FIT_HA)
+    rec["theta_zz"] = quadrupole_zz(calc)
+    rec["parts"] = df_parts(calc, smi_line)
+    emit({"df_b3lyp": rec})
+    return rec
+
+
+def df_cam_b3lyp(smi_line):
+    """CAM-B3LYP on the DF route: the long-range K of each Fock build is
+    RI-K on one attenuated-metric fit, df_lr0 (omega = 0.33)."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2).densityfit()
+    calc, rec = ks_phase("df_cam_b3lyp", mol, "camb3lyp", DF_CAM_ANCHOR_HA,
+                         smi_line)
+    rec["own_fit_anchor_ha"] = DF_CAM_ANCHOR_OWN_FIT_HA
+    rec["energy_minus_own_fit_anchor_ha"] = (rec["energy_ha"]
+                                             - DF_CAM_ANCHOR_OWN_FIT_HA)
+    lr = [k for k in calc._theta if k.startswith("df_lr")]
+    rec["lr_fits"] = lr
+    rec["parts"] = df_parts(calc, smi_line)
+    emit({"df_cam_b3lyp": rec})
+    if lr != ["df_lr0"] or [r["omega"] for r in rec["df_lr"]] != [0.33]:
+        fail(f"df_cam_b3lyp: long-range fits {lr}, {rec['df_lr']}")
+    return rec
+
+
+def df_forces(smi_line):
+    """Forces of benzene B3LYP on the DF route by implicit differentiation
+    (tol 1e-11): their mirror symmetry, sum, central differences on the
+    card, and their gap to the stored dense forces' mirror-symmetric part
+    (the autoaux fitting error)."""
+    ref = np.load(FORCE_NPZ)
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2).densityfit()
+    calc = dq.KS(mol, xc="b3lyp", opts=dq.SCFOptions(tol=1e-11))
+    calc.run()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    g = calc.energy_grad()
+    launches = path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    F = -g["basis"]["atompos"].detach().cpu().numpy()
+    mirror = max(float(np.abs(F - mirror_forces(F, ax)).max())
+                 for ax in (0, 1))
+    sumF = float(np.abs(F.sum(0)).max())
+    rec = {"system": "benzene", "basis": "def2-svp", "method": "RKS-B3LYP",
+           "route": "df", "grid": 2, "tol": 1e-11,
+           "energy_ha": float(calc.energy()),
+           "max_abs_dF_vs_dense_symmetric_stored":
+               float(np.abs(F - symmetric_part(ref["force"])).max()),
+           "max_abs_mirror_gap": mirror, "max_abs_sum_F": sumF,
+           "grad_s": calc.stats["grad_s"],
+           "grad_forward_s": calc.stats["grad_forward_s"],
+           "grad_backward_s": calc.stats["grad_backward_s"],
+           "gmres": calc.stats["gmres"], "launches_in_gradient": launches,
+           "peak_device_bytes_gradient": peak,
+           "scf_iterations": calc.stats["iterations"],
+           "residual": calc.stats["residual"], "forces": F.tolist(),
+           "card": smi_line}
+    emit({"df_forces": rec})
+    if not np.all(np.isfinite(F)) or F.shape != (12, 3):
+        fail(f"df_forces: forces not finite or of shape {F.shape}")
+    if mirror > MIRROR_GATE:
+        fail(f"df_forces: the forces break the mirror symmetry by "
+             f"{mirror:.3e}")
+    if sumF > 1e-8:
+        fail(f"df_forces: sum of the forces {sumF:.3e}")
+    if launches["ds_jk"] != 0 or not (launches["ds_dens_gga"] > 0
+                                      and launches["ds_vxc_gga"] > 0):
+        fail(f"df_forces: kernels inside the gradient: {launches}")
+    central_differences("df_forces_fd", calc, F)
+    return rec
+
+
+def df_vitamin_c(smi_line, dense):
+    """The reference's benchmark workload as benchmarks/vitamin_c.py runs it
+    by default: vitamin C/cc-pVDZ, grid 2, densityfit(), lda_x+lda_c_pw;
+    df_s and the peak beside the dense vitamin_c phase's in this run."""
+    mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2).densityfit()
+    calc, rec = ks_phase("df_vitamin_c", mol, "lda_x+lda_c_pw",
+                         VITC_DF_ANCHOR_HA, smi_line,
+                         nelec=VITAMIN_C_NELEC, gate=VITC_DF_GATE_HA)
+    rec.update(harness_ha=VITC_DF_HARNESS_HA,
+               energy_minus_harness_ha=rec["energy_ha"] - VITC_DF_HARNESS_HA,
+               dense_phase_eri_dense_s=dense["eri_dense_s"],
+               dense_phase_peak_device_bytes=dense["peak_device_bytes"],
+               dense_phase_xc="b3lyp", gate_ha=VITC_DF_GATE_HA,
+               parts=df_parts(calc, smi_line))
+    emit({"df_vitamin_c": rec})
+    return rec
+
+
+def quadrupole_zz(calc):
+    """Theta_zz = 1/2 int rho_total (3 z^2 - r^2) of a restricted calc's
+    molecule about the origin (Buckingham), nuclei included."""
+    mol = calc.mol
+    dm = calc.aodm()
+    with torch.no_grad():
+        mp = lambda pw: integrals.multipole(mol.meta, mol.params, pw)
+        q = 2.0 * mp((0, 0, 2)) - mp((2, 0, 0)) - mp((0, 2, 0))
+        pos, z = mol.params["atompos"], mol.atomzs
+        nuc = (z * (2 * pos[:, 2] ** 2 - pos[:, 0] ** 2 - pos[:, 1] ** 2)).sum()
+        return 0.5 * float(nuc - (dm * q).sum())
+
+
+def df_beyond_dense(smi_line, e_df_benzene, theta_zz):
+    """Two benzenes DIMER_SHIFT_BOHR apart (nao 228): the dense route
+    refuses the 21.6 GB ERI; the DF route gives twice the df_b3lyp energy
+    plus the two quadrupoles' interaction, with K2 and K3 at nao 228
+    against their plain versions."""
+    shifted = "; ".join(
+        f"{a.split()[0]} {a.split()[1]} {a.split()[2]} {DIMER_SHIFT_BOHR}"
+        for a in benzene_desc().split("; "))
+    mol = dq.Mol(benzene_desc() + "; " + shifted, basis="def2-svp", grid=2)
+    nao = mol.meta.nao
+    try:
+        dq.KS(mol, xc="b3lyp")
+        fail("df_beyond_dense: the dense route took the dimer")
+    except NotImplementedError as ex:
+        refusal = str(ex)
+    mol.densityfit()
+    e_qq = 6.0 * theta_zz ** 2 / DIMER_SHIFT_BOHR ** 5
+    calc, rec = ks_phase("df_beyond_dense", mol, "b3lyp",
+                         2 * e_df_benzene + e_qq, smi_line, nelec=2 * NELEC,
+                         gate=DIMER_GATE_HA)
+    grid = calc._theta["grid"]
+    dm = calc.aodm().contiguous()
+    ao, ag = grid["ao"], grid["ao_grad"]
+    rho, gdot = ds_dens_reference(ao, ag, dm)
+    _, vbar = integrate._pointwise_adjoints(
+        calc.engine.xc, {"rho": rho, "grad": gdot}, grid["dvol"], False, None)
+    vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+    checks = [check_dens(ao, ag, dm, "dimer grid (nao 228), converged dm"),
+              check_vxc(ao, ag, vr, vg, "dimer grid, real vrho/vgrad")]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rec.update(dense_refusal=refusal, dense_eri_bytes=8 * nao ** 4,
+               dense_limit_bytes=qccalc.config.DENSE_ERI_BYTES_LIMIT,
+               shift_bohr=DIMER_SHIFT_BOHR,
+               energy_minus_twice_df_b3lyp_ha=rec["energy_ha"]
+               - 2 * e_df_benzene, theta_zz=theta_zz,
+               quadrupole_energy_ha=e_qq,
+               kernel_checks=checks,
+               ds_dens_gga_plan=hopper_xc.dens_plan(ao.shape[0], nao, sms),
+               ds_vxc_gga_plan=hopper_xc.vxc_plan(ao.shape[0], nao, sms),
+               parts=df_parts(calc, smi_line))
+    emit({"df_beyond_dense": rec})
+    if nao != 228 or rec["ngrid"] != 156288:
+        fail(f"df_beyond_dense: nao {nao}, ng {rec['ngrid']}; expected 228 "
+             "and 156288")
+    if 8 * nao ** 4 <= qccalc.config.DENSE_ERI_BYTES_LIMIT:
+        fail("df_beyond_dense: the dimer's ERI fits the dense limit")
+    return rec, checks
+
+
+def df_uks_o2(smi_line):
+    """O2 triplet, UKS-LDA on the DF route, against PySCF; the polarized
+    RI-K gives one K per spin (the LDA's own Fock builds compute none)."""
+    desc, basis, grid, ref, tol = O2_DF_PYSCF
+    mol = dq.Mol(desc, basis=basis, grid=grid, spin=2).densityfit()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    reset_counts()
+    calc = dq.KS(mol, xc="lda_x+lda_c_pw", restricted=False).run()
+    launches = path_counts()
+    e = float(calc.energy())
+    theta = calc._theta
+    d = calc.aodm()
+    dm = torch.stack([d.u, d.d])
+    with torch.no_grad():
+        k = df_k(theta["df"], dm)
+        k_each = [df_k(theta["df"], dm[s]) for s in (0, 1)]
+        _, k_fock = calc.engine.jk_parts(dm, theta)
+    nel = [float(torch.einsum("ij,ji->", dm[s], theta["ovlp"]))
+           for s in (0, 1)]
+    rec = {"system": "O2", "basis": basis, "grid": grid, "spin": 2,
+           "xc": "lda_x+lda_c_pw", "nao": mol.meta.nao,
+           "naux": calc.stats["naux"], "energy_ha": e, "anchor_ha": ref,
+           "tol_ha": tol, "energy_minus_anchor_ha": e - ref,
+           "iterations": calc.stats["iterations"],
+           "residual": calc.stats["residual"], "trace_dm_ovlp_by_spin": nel,
+           "ri_k_shape": list(k.shape), "launches": launches,
+           "launches_sad": sad_counts(),
+           "total_s": time.perf_counter() - t0,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "card": smi_line}
+    emit({"df_uks_o2": rec})
+    if not calc.stats["residual"] <= calc.opts.tol:
+        fail(f"df_uks_o2: residual {calc.stats['residual']:.3e}")
+    if not abs(e - ref) <= tol:
+        fail(f"df_uks_o2: energy {e!r} vs PySCF {ref!r}")
+    if tuple(k.shape) != (2,) + tuple(dm.shape[1:]) or not all(
+            torch.equal(k[s], k_each[s]) for s in (0, 1)):
+        fail("df_uks_o2: the polarized RI-K is not one K per spin")
+    if k_fock is not None:
+        fail("df_uks_o2: the LDA's Fock build computed RI-K")
+    if abs(nel[0] - 9.0) > 1e-8 or abs(nel[1] - 7.0) > 1e-8:
+        fail(f"df_uks_o2: tr(D S) by spin {nel}, expected 9 and 7")
+    if any(launches.values()):
+        fail(f"df_uks_o2: kernels launched on an LDA DF path: {launches}")
     return rec
 
 
@@ -1290,23 +1647,52 @@ def main():
     torch.cuda.empty_cache()
     vitc_rec = vitamin_c(smi_line)
     torch.cuda.empty_cache()
+
+    # 11. density fitting: RI-J/RI-K in place of K1, the long-range fit of
+    # range separation, forces, the reference's vitamin C workload, a
+    # molecule past the dense limit, and a polarized case
+    df_rec = df_b3lyp(smi_line)
+    torch.cuda.empty_cache()
+    df_cam_rec = df_cam_b3lyp(smi_line)
+    torch.cuda.empty_cache()
+    df_force_rec = df_forces(smi_line)
+    torch.cuda.empty_cache()
+    df_vitc_rec = df_vitamin_c(smi_line, vitc_rec)
+    torch.cuda.empty_cache()
+    dimer_rec, dimer_checks = df_beyond_dense(smi_line, df_rec["energy_ha"],
+                                              df_rec["theta_zz"])
+    xc_checks += dimer_checks
+    torch.cuda.empty_cache()
+    o2_rec = df_uks_o2(smi_line)
+    torch.cuda.empty_cache()
     by_path = {"main_path_hf": hf_launches, "main_path_ks": ks_launches,
                "forces_gradient": force_rec["launches_in_gradient"],
                "cam_b3lyp": cam_rec["launches"],
                "meta_gga": mgga_rec["launches"], "nn_xc": nn_rec["launches"],
                "nn_xc_gradient": nn_rec["launches_in_gradient"],
-               "vitamin_c": vitc_rec["launches"]}
+               "vitamin_c": vitc_rec["launches"],
+               "df_b3lyp": df_rec["launches"],
+               "df_cam_b3lyp": df_cam_rec["launches"],
+               "df_forces_gradient": df_force_rec["launches_in_gradient"],
+               "df_vitamin_c": df_vitc_rec["launches"],
+               "df_beyond_dense": dimer_rec["launches"],
+               "df_uks_o2": o2_rec["launches"]}
 
     sad_by_path = {"main_path_hf": hf_sad, "main_path_ks": ks_sad,
                    "cam_b3lyp": cam_rec["launches_sad"],
                    "meta_gga": mgga_rec["launches_sad"],
                    "nn_xc": nn_rec["launches_sad"],
-                   "vitamin_c": vitc_rec["launches_sad"]}
+                   "vitamin_c": vitc_rec["launches_sad"],
+                   "df_b3lyp": df_rec["launches_sad"],
+                   "df_cam_b3lyp": df_cam_rec["launches_sad"],
+                   "df_vitamin_c": df_vitc_rec["launches_sad"],
+                   "df_beyond_dense": dimer_rec["launches_sad"],
+                   "df_uks_o2": o2_rec["launches_sad"]}
 
     def launches_of(name, paths=by_path):
         return {path: c.get(name, 0) for path, c in paths.items()}
 
-    # 11. a small molecule against its published energy
+    # 12. a small molecule against its published energy
     qc = dq.HF(dq.Mol("H -0.5 0 0; H 0.5 0 0", basis="3-21G")).run()
     e_h2 = float(qc.energy())
     emit({"small": {"system": "H2", "basis": "3-21G", "energy_ha": e_h2,

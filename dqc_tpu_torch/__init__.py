@@ -7,11 +7,14 @@ one- and two-electron integrals, the integration grid, LDA, GGA and
 meta-GGA functionals (hybrids and range-separated hybrids included) and
 user-defined (neural) ones (xc/custom.CustomXC), restricted/unrestricted
 Hartree-Fock and Kohn-Sham from the SAD start, and their derivatives
-through the SCF. On the card J and K of every Fock build, and the
-long-range K of a range-separated hybrid, come from a hand-written CUDA
-kernel (ops/hopper_jk.py, csrc/ds_jk.cu), and the grid density and V_xc of
-a GGA or meta-GGA from two more (ops/hopper_xc.py, csrc/ds_dens_gga.cu,
-csrc/ds_vxc_gga.cu).
+through the SCF. Two routes for J and K: the dense route, where on the
+card J and K of every Fock build, and the long-range K of a
+range-separated hybrid, come from a hand-written CUDA kernel
+(ops/hopper_jk.py, csrc/ds_jk.cu); and, after mol.densityfit(), the
+density-fitted route (scf/df.py: RI-J and RI-K, and an attenuated-metric
+fit for the long-range K), which builds no nao^4 tensor. On both the grid
+density and V_xc of a GGA or meta-GGA come from two more kernels
+(ops/hopper_xc.py, csrc/ds_dens_gga.cu, csrc/ds_vxc_gga.cu).
 
 Calculations run on the CUDA card unless the caller passes device="cpu";
 without a card and without that argument the entry points raise.
@@ -37,7 +40,7 @@ _NOT_PORTED = {
 for _n in ("hessian_pos", "vibration", "ir_spectrum", "raman_spectrum",
            "edipole", "equadrupole", "eoctupole", "polarizability",
            "optimal_geometry", "is_orb_min", "lowest_eival_orb_hessian"):
-    _NOT_PORTED[_n] = "properties need implicit differentiation (ROADMAP A9/A13)"
+    _NOT_PORTED[_n] = "properties are not ported yet (ROADMAP A13)"
 
 
 def __getattr__(name):

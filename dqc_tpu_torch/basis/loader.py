@@ -2,11 +2,15 @@
 
 Offline-first: the standard sets are vendored as Python data modules in
 basis/sets/ (the port's own copies). `parse_gaussian94` parses user-supplied
-Gaussian94-format text. User basis directories (`register_basis_dir`) are
-not ported yet.
+Gaussian94-format text. Directories of Gaussian94 files registered with
+`register_basis_dir` (or listed in DQC_TPU_BASIS_PATH, colon-separated, at
+import) take precedence over the vendored data for every name they cover;
+they are the only source of a named fitting basis for
+Mol.densityfit(auxbasis=...).
 """
 from __future__ import annotations
 
+import os
 import re
 from typing import Dict, List
 
@@ -27,9 +31,64 @@ _REGISTRY: Dict[str, str] = {
     _NORMALIZE("cc-pvdz"): "ccpvdz",
 }
 
+# fitting-basis names recognised but not vendored; Mol.densityfit() without
+# an auxbasis generates an even-tempered one (basis/autoaux.py)
+_UNVENDORED_FIT = {_NORMALIZE("def2-svp-jkfit"),
+                   _NORMALIZE("def2-universal-jkfit")}
+
 _cache: Dict[str, dict] = {}
 _nonverbatim: Dict[str, frozenset] = {}
 _warned_nonverbatim: set = set()
+
+# user basis directories, most recently registered first; file stem = basis
+# name (e.g. "def2-svp-jkfit.gbs")
+_basis_dirs: List[str] = []
+_dir_file_cache: Dict[str, dict] = {}   # file path -> {Z: [raw CGTOBasis]}
+_G94_EXTS = (".g94", ".gbs", ".bas", ".txt")
+
+
+def register_basis_dir(path: str) -> None:
+    """Put a directory of Gaussian94 basis files (*.g94/*.gbs/*.bas/*.txt;
+    file stem = basis-set name) first on the lookup path."""
+    path = os.path.abspath(path)
+    if not os.path.isdir(path):
+        raise ValueError(f"not a directory: {path!r}")
+    if path in _basis_dirs:
+        _basis_dirs.remove(path)
+    _basis_dirs.insert(0, path)
+
+
+def _seed_env_dirs() -> None:
+    for p in reversed(os.environ.get("DQC_TPU_BASIS_PATH", "").split(":")):
+        if p and os.path.isdir(p):
+            register_basis_dir(p)
+
+
+_seed_env_dirs()
+
+
+def _dir_lookup(basisname: str):
+    """Path of a file in a registered directory whose stem matches
+    `basisname` (normalized comparison), or None."""
+    key = _NORMALIZE(basisname)
+    for d in _basis_dirs:
+        try:
+            names = sorted(os.listdir(d))
+        except OSError:
+            continue
+        for f in names:
+            stem, ext = os.path.splitext(f)
+            if ext.lower() in _G94_EXTS and _NORMALIZE(stem) == key:
+                return os.path.join(d, f)
+    return None
+
+
+def _dir_data(path: str) -> dict:
+    if path not in _dir_file_cache:
+        with open(path) as fh:
+            _dir_file_cache[path] = parse_gaussian94(fh.read(),
+                                                     normalize=False)
+    return _dir_file_cache[path]
 
 
 def list_basis_sets() -> List[str]:
@@ -38,6 +97,12 @@ def list_basis_sets() -> List[str]:
 
 def _get_data(basisname: str) -> dict:
     key = _NORMALIZE(basisname)
+    if key in _UNVENDORED_FIT:
+        raise ValueError(
+            f"Fitting basis {basisname!r} is not vendored. Use "
+            "Mol.densityfit() without an auxbasis for the generated "
+            "even-tempered auxiliary set (basis/autoaux.py), or put the "
+            "basis file in a directory given to register_basis_dir.")
     if key not in _REGISTRY:
         raise ValueError(
             f"Unknown basis set {basisname!r}; vendored sets: "
@@ -80,6 +145,17 @@ def loadbasis(cmd: str, normalize: bool = True) -> List[CGTOBasis]:
     elem, name = cmd.split(":", 1)
     z = get_atomz(elem.strip())
     name = name.strip()
+    fpath = _dir_lookup(name)
+    if fpath is not None:
+        fdata = _dir_data(fpath)
+        if z not in fdata:
+            raise ValueError(
+                f"Basis file {fpath!r} has no data for element Z={z}")
+        out = [CGTOBasis(angmom=b.angmom,
+                         alphas=np.array(b.alphas, dtype=np.float64),
+                         coeffs=np.array(b.coeffs, dtype=np.float64))
+               for b in fdata[z]]
+        return [b.wfnormalize_() for b in out] if normalize else out
     data = _get_data(name)
     if z not in data:
         raise ValueError(f"Basis {name!r} has no data for element Z={z}")

@@ -1,9 +1,10 @@
-"""Electron-repulsion integrals (4-center, dense).
+"""Electron-repulsion integrals: 4-center dense, and the 3- and 2-center
+Coulomb integrals of density fitting.
 
-Counterpart of dqc_tpu/ops/eri.py (the 2- and 3-center density-fitting
-integrals come with density fitting). Design:
+Counterpart of dqc_tpu/ops/eri.py. Design:
 
-  - every charge distribution (shell pair) is reduced to a *Hermite factor*
+  - every charge distribution (shell pair, or single aux shell) is reduced
+    to a *Hermite factor*
     H[batch, prims, nsph, nherm]: the contraction- and spherical-transformed
     McMurchie-Davidson E-coefficients, assembled with precomputed-index
     gathers.
@@ -25,7 +26,8 @@ from .chunks import map_blocks
 from .mcd import (e3_pair, e_coeffs_stacked, gaussian_product, hermite_list,
                   hermite_R_stacked)
 from .shellstruct import (BasisMeta, PairClassMeta, gather_pair_inputs,
-                          pair_ao_indices, sph_transform, tri_pair_classes)
+                          normalized_coeffs, nsph, pair_ao_indices,
+                          sph_transform, tri_pair_classes)
 
 TWO_PI_POW_2_5 = 2.0 * np.pi ** 2.5
 
@@ -61,6 +63,22 @@ def hermite_factor_pair(inp) -> HermiteFactor:
     H = torch.einsum("pkch,sc->pksh", Hcart, Csph)
     return HermiteFactor(H=H, p=gp["p"].reshape(np_, ka * kb),
                          P=gp["P"].reshape(np_, ka * kb, 3), L=L)
+
+
+def hermite_factor_single(l: int, pos, alphas, coeffs) -> HermiteFactor:
+    """Hermite factor of single shells (the aux side of DF integrals).
+
+    pos: (ns,3); alphas/coeffs: (ns,k), coeffs already normalized+masked."""
+    ns, k = alphas.shape
+    zeros3 = torch.zeros((ns, k, 3), dtype=alphas.dtype, device=alphas.device)
+    Earr = e_coeffs_stacked(l, 0, zeros3, zeros3, 0.5 / alphas)
+    E3 = e3_pair(l, 0, Earr)                         # (ns,k,ncart,nh)
+    Hcart = E3 * coeffs[..., None, None]
+    Csph = torch.as_tensor(sph_transform(l), dtype=Hcart.dtype,
+                           device=Hcart.device)
+    H = torch.einsum("pkch,sc->pksh", Hcart, Csph)
+    P = pos[:, None, :].expand(ns, k, 3)
+    return HermiteFactor(H=H, p=alphas, P=P, L=l)
 
 
 def _combine_index_sign(L1: int, L2: int):
@@ -270,3 +288,93 @@ def eri_dense(meta: BasisMeta, params, block=None, screened=None,
     g = g + g.permute(0, 1, 3, 2)
     g = g + g.permute(2, 3, 0, 1)
     return g
+
+
+def _aux_factors(meta: BasisMeta, params):
+    """Hermite factors of every shell class of a basis, treated as single
+    shells (the aux side of DF). Returns a list of (factor, ao_starts, l)."""
+    out = []
+    dev = params["atompos"].device
+    for ci, cls in enumerate(meta.classes):
+        coeffs = normalized_coeffs(cls.l, params["alphas"][ci],
+                                   params["coeffs"][ci], params["mask"][ci])
+        pos = params["atompos"][torch.as_tensor(np.asarray(cls.atom_ids),
+                                                device=dev)]
+        fac = hermite_factor_single(cls.l, pos, params["alphas"][ci], coeffs)
+        out.append((fac, np.asarray(cls.ao_starts), cls.l))
+    return out
+
+
+def _packed_perm(facs, naux):
+    """Host permutation: packed (class-concatenated) column -> true AO
+    column, returned as its inverse for direct indexing."""
+    cols = [
+        (np.asarray(st)[:, None] + np.arange(nsph(l))[None, :]).ravel()
+        for (_, st, l) in facs]
+    perm = np.concatenate(cols)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(naux)
+    return inv
+
+
+def coul2c(meta_aux: BasisMeta, params_aux, block=None, omega=None):
+    """(aux_i | g | aux_j) -> (naux, naux), g = 1/r12 or erf(omega r)/r12.
+
+    Assembled by class-block concatenation and one permutation, as in the
+    JAX package."""
+    naux = meta_aux.nao
+    facs = _aux_factors(meta_aux, params_aux)
+    inv = torch.as_tensor(_packed_perm(facs, naux),
+                          device=params_aux["atompos"].device)
+    rows = []
+    for (fa, _, _) in facs:
+        row = []
+        for (fb, _, _) in facs:
+            blk = coulomb_contract(fa, fb, block=block,
+                                   omega=omega)      # (na, sa, nb, sb)
+            na, sa = blk.shape[0], blk.shape[1]
+            row.append(blk.reshape(na * sa, -1))
+        rows.append(torch.cat(row, dim=1))
+    packed = torch.cat(rows, dim=0)
+    return packed[inv][:, inv]
+
+
+def coul3c(meta: BasisMeta, params, meta_aux: BasisMeta, params_aux,
+           block=None, omega=None):
+    """(ab | g | aux) -> (nao, nao, naux), g = 1/r12 or erf(omega r)/r12.
+
+    Canonical shell pairs (a <= b) only, diagonal pairs at half weight, then
+    g + g.transpose(0, 1), as in the JAX package. Each pair class scatters
+    its rows once; no row repeats inside one scatter, so the result is the
+    same from run to run on the card. Under autograd coulomb_contract
+    recomputes each block in the backward (checkpoint), as for eri_dense."""
+    nao, naux = meta.nao, meta_aux.nao
+    dev = params["atompos"].device
+    facs_aux = _aux_factors(meta_aux, params_aux)
+    inv = torch.as_tensor(_packed_perm(facs_aux, naux), device=dev)
+    out = torch.zeros((nao * nao, naux), dtype=DTYPE, device=dev)
+    for pc in tri_pair_classes(meta):
+        if pc.npair == 0:
+            continue
+        inp = gather_pair_inputs(meta, params, pc)
+        fab = hermite_factor_pair(inp)
+        idx_ab = torch.as_tensor(pair_ao_indices(meta, pc).reshape(-1),
+                                 device=dev)
+        diag = ((pc.ia == pc.ib) if pc.ca == pc.cb
+                else np.zeros(pc.npair, dtype=bool))
+        w = torch.as_tensor(np.where(diag, 0.5, 1.0), dtype=DTYPE,
+                            device=dev)
+        # all aux classes packed along the last axis, then one permutation
+        blocks = [coulomb_contract(fab, fc, block=block, omega=omega).reshape(
+            pc.npair, -1, len(st) * nsph(lc))
+            for (fc, st, lc) in facs_aux]
+        big = torch.cat(blocks, dim=-1)[:, :, inv]
+        del blocks
+        big = (big * w[:, None, None]).reshape(-1, naux)
+        if big.requires_grad:
+            out = out.index_add(0, idx_ab, big)
+        else:
+            out.index_add_(0, idx_ab, big)
+    g = out.reshape(nao, nao, naux)
+    del out
+    return g + g.transpose(0, 1)

@@ -6,13 +6,19 @@ occupation weights) is the only state.
 
 State convention: restricted -> dm (nao, nao); polarized -> dm (2, nao, nao).
 
-theta carries the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl));
-J and K of every Fock build come from one pass of the fused kernel
-(ops/hopper_jk.py) over it, once per spin. A range-separated hybrid adds one
-erf-attenuated tensor per distinct omega in the same layout (eri_lr_k0,
-eri_lr_k1, ...), whose long-range K comes from the same kernel. The
-periodic, blocked, streamed and density-fitted branches of the JAX engine
-are not ported yet.
+Two routes for J and K, chosen by what theta carries:
+  - dense: the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl)); J
+    and K of every Fock build come from one pass of the fused kernel
+    (ops/hopper_jk.py) over it, once per spin. A range-separated hybrid
+    adds one erf-attenuated tensor per distinct omega in the same layout
+    (eri_lr_k0, eri_lr_k1, ...), whose long-range K comes from the same
+    kernel.
+  - density-fitted: theta['df'] (scf/df.build_df_theta); RI-J and RI-K are
+    plain torch products, as they are XLA einsums in the JAX package, and
+    the long-range K of each omega comes from its attenuated-metric fit
+    theta['df_lr{i}'].
+The periodic, blocked and streamed branches of the JAX engine are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -20,6 +26,7 @@ import torch
 
 from ..ops.hopper_jk import ds_jk, ds_jk_kplanes
 from ..xc.integrate import exc_energy, vxc_matrix
+from .df import df_j, df_k
 from .eigh import eigh_density
 from .orth import LARGE
 
@@ -42,7 +49,8 @@ def orthogonal_fock_to_dm(fock, X, keep, occ):
 class HFEngine:
     """Restricted/unrestricted Hartree-Fock.
 
-    theta keys: hcore (nao,nao), eri_k (nao,)*4, ovlp, X, keep, occ, enuc."""
+    theta keys: hcore (nao,nao), eri_k (nao,)*4 or df, ovlp, X, keep, occ,
+    enuc."""
 
     def __init__(self, polarized: bool = False):
         self.polarized = polarized
@@ -51,16 +59,23 @@ class HFEngine:
         return dm.sum(dim=0) if self.polarized else dm
 
     def _j(self, theta, dm_tot):
+        if "df" in theta:
+            return df_j(theta["df"], dm_tot)
         return ds_jk_kplanes(theta["eri_k"], dm_tot.contiguous())[0]
 
     def _k(self, theta, dm):
+        if "df" in theta:
+            return df_k(theta["df"], dm)
         if dm.ndim == 3:
             return torch.stack([self._k(theta, d) for d in dm])
         return ds_jk_kplanes(theta["eri_k"], dm.contiguous())[1]
 
     def jk_parts(self, dm, theta):
-        """(J of the total density, K per spin) from the fused kernel: one
-        pass over eri_k per spin."""
+        """(J of the total density, K per spin): on the dense route from the
+        fused kernel, one pass over eri_k per spin; on the DF route RI-J
+        and RI-K."""
+        if "df" in theta:
+            return self._j(theta, self.dm_tot(dm)), self._k(theta, dm)
         eri_k = theta["eri_k"]
         if self.polarized:
             ju, ku = ds_jk_kplanes(eri_k, dm[0].contiguous())
@@ -113,30 +128,43 @@ class KSEngine(HFEngine):
 
     Extra theta keys: the grid tables theta['grid'] (xc/integrate.
     setup_grid_theta), the NN parameters theta['xc_params'] of a CustomXC,
-    and one erf-attenuated ERI per entry of xc.exx_lr, eri_lr_k{i}, in the
-    exchange layout of eri_k; the XC object is held on the engine.
-    jk_parts is HFEngine's: K comes with J from the one pass of K1 even
-    when the functional has no exact exchange. V_xc and E_xc come from
-    xc/integrate, which takes the kernels K2/K3 for rho and grad rho on the
-    card. The long-range K of each omega is one K1 pass per spin
-    (lr_parts); fock_from_parts and energy_from_parts compute it unless
-    the caller passes it (klr=, as exc= for the XC energy)."""
+    and, per entry of xc.exx_lr, its erf-attenuated ERI eri_lr_k{i} in the
+    exchange layout of eri_k (dense route) or its attenuated-metric fit
+    df_lr{i} (DF route); the XC object is held on the engine.
+    On the dense route K comes with J from the one pass of K1 even when the
+    functional has no exact exchange; on the DF route jk_parts skips RI-K
+    (k = None) when xc.exx_fraction is 0, as the JAX package does. V_xc and
+    E_xc come from xc/integrate, which takes the kernels K2/K3 for rho and
+    grad rho on the card. The long-range K of each omega is one K1 pass
+    per spin on eri_lr_k{i}, or RI-K on df_lr{i} (lr_parts);
+    fock_from_parts and energy_from_parts compute it unless the caller
+    passes it (klr=, as exc= for the XC energy)."""
 
     def __init__(self, xc, polarized: bool = False):
         super().__init__(polarized)
         self.xc = xc
 
+    def jk_parts(self, dm, theta):
+        """HFEngine's, except that the DF route computes no RI-K for a
+        functional without exact exchange (k = None)."""
+        if "df" in theta and self.xc.exx_fraction == 0.0:
+            return self._j(theta, self.dm_tot(dm)), None
+        return super().jk_parts(dm, theta)
+
     def _k_lr(self, theta, dm, i):
         """Exchange with the long-range erf(omega r)/r kernel of term i of
         xc.exx_lr: the trailing output of K1 on eri_lr_k{i}, one launch per
         spin (the same contraction as the JAX package's
-        einsum("ikjl,...kl->...ij", eri_lr, dm))."""
+        einsum("ikjl,...kl->...ij", eri_lr, dm)), or RI-K on the
+        attenuated-metric fit df_lr{i}."""
         key = f"eri_lr_k{i}"
+        if f"df_lr{i}" in theta:
+            return df_k(theta[f"df_lr{i}"], dm)
         if key not in theta:
             raise NotImplementedError(
                 "not ported yet: long-range exchange without a dense "
-                f"attenuated ERI ({key!r}); periodic range separation is "
-                "ROADMAP A14")
+                f"attenuated ERI ({key!r}) or its density fit (df_lr{i}); "
+                "periodic range separation is ROADMAP A14")
         if dm.ndim == 3:
             return torch.stack([self._k_lr(theta, d, i) for d in dm])
         return ds_jk(theta[key], dm.contiguous())[0]

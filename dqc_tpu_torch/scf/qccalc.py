@@ -12,18 +12,21 @@ systems and a host-driven ladder of f32 and f64 phases for large ones, made
 for f64 emulation and remote compiles on the TPU. The port has one loop in
 float64 with the meaning of the small-system solver:
   f0 -> diis_solve(step_and_err) -> dm_from_fock(f_star) -> energy.
-Both take the dense route (eri_dense in the exchange layout eri_k); KS adds
-the grid tables, and a range-separated hybrid one erf-attenuated ERI per
-distinct omega in the same layout. Above GUESS_NAO the SCF starts from the
-superposition of atomic densities (sad_dm0), as in the JAX package.
-Periodic systems, density fitting and the variational mode are not ported
-yet.
+A molecule without densityfit() takes the dense route (eri_dense in the
+exchange layout eri_k; a range-separated hybrid adds one erf-attenuated ERI
+per distinct omega in the same layout); one with it takes the density-fitted
+route (scf/df.build_df_theta in the molecule's aux basis, and one
+attenuated-metric fit per omega), which builds no nao^4 tensor. KS adds the
+grid tables. Above GUESS_NAO the SCF starts from the superposition of
+atomic densities (sad_dm0), as in the JAX package; the atoms run dense.
+Periodic systems and the variational mode are not ported yet.
 
 Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
 params in the autograd graph (one-electron integrals, the in-graph
 orthogonaliser X of safe_eigh, eri_dense and its eri_k layout, the grid
 points, Becke weights and AO tables, which move with the atoms), and the
-converged dm is `implicit_fixed_point(engine.step, ...)` of it, started from
+converged dm is `implicit_fixed_point(engine.step, ...)` of it (the DF fits
+are rebuilt there too, their aux centres tied to the atoms), started from
 the dm of run(). The JAX package's split-module adjoint (scf/adjoint.py),
 made for a remote TPU compiler, has no counterpart: one backward through
 that graph is the same gradient.
@@ -37,13 +40,14 @@ import numpy as np
 import torch
 
 from ..ops.eri import eri_dense, screened_pair_classes
-from ..ops.shellstruct import nsph
+from ..ops.shellstruct import nsph, pack_basis
 from ..utils.config import config
 from ..utils.datastruct import SpinParam
 from ..utils.logger import log
 from ..xc import get_xc
 from ..xc.custom import CustomXC
 from ..xc.integrate import setup_grid_theta
+from .df import build_df_theta
 from .engine import HFEngine, KSEngine
 from .fixed_point import SCFOptions, diis_solve, implicit_fixed_point
 from .hamilton import build_core_theta
@@ -337,10 +341,11 @@ def _floats(tree):
     return []
 
 
-def _dense_route(mol, variational, opts, what, n_eri: int = 1):
-    """Refuse what the dense route of the port does not cover yet; n_eri
-    dense nao^4 tensors (eri_k and the attenuated ones of a range-separated
-    hybrid) count against config.DENSE_ERI_BYTES_LIMIT together."""
+def _route(mol, variational, opts, what, n_eri: int = 1):
+    """Refuse what the port does not cover yet. Without densityfit(), n_eri
+    dense nao^4 tensors (eri_k and the attenuated ones of a
+    range-separated hybrid) count against config.DENSE_ERI_BYTES_LIMIT
+    together; the DF route builds none and has no such limit."""
     if hasattr(mol, "lattice"):
         raise NotImplementedError(
             f"not ported yet: periodic {what} (ROADMAP A14)")
@@ -349,6 +354,8 @@ def _dense_route(mol, variational, opts, what, n_eri: int = 1):
             "not ported yet: the variational SCF mode (ROADMAP A13)")
     if opts is not None and opts.guess not in ("sad", "gwh"):
         raise ValueError(f"unknown initial guess {opts.guess!r}")
+    if mol.dfinfo is not None:
+        return
     nao = mol.meta.nao
     limit = config.DENSE_ERI_BYTES_LIMIT
     need = n_eri * nao ** 4 * 8
@@ -357,22 +364,40 @@ def _dense_route(mol, variational, opts, what, n_eri: int = 1):
                       if n_eri == 1 else
                       f"range-separated exchange at nao = {nao} needs "
                       f"{n_eri} dense ERI tensors ({need} bytes)")
-        other = ("the blocked/streamed J/K route is ROADMAP A12"
-                 if n_eri == 1 else
-                 "its other routes are density fitting (ROADMAP A11) and "
-                 "the blocked/streamed J/K route (ROADMAP A12)")
         raise NotImplementedError(
-            f"not ported yet: {what_needs}, above the {limit}-byte limit "
-            f"of the dense route; {other}")
+            f"{what_needs}, above the {limit}-byte limit of the dense route; "
+            "call mol.densityfit() for the density-fitted route (ROADMAP "
+            "A11), or wait for the exact blocked/streamed J/K route, not "
+            "ported yet (ROADMAP A12)")
 
 
-def _dense_theta(mol, params, occ, stats, grid=None, family=None,
-                 omegas=()):
-    """theta of the dense route: one-electron integrals, eri_k, occupations
-    and, for KS, the grid tables, the xc_params and one erf-attenuated
-    eri_lr_k{i} per omega. Each nao^4 tensor is built, laid out and its
-    J-layout intermediate freed before the next build starts. Stage
-    seconds go into `stats`."""
+def _df_setup(mol):
+    """(meta_aux, params_aux) of the molecule's aux basis on its device, or
+    None without densityfit()."""
+    if mol.dfinfo is None:
+        return None
+    return pack_basis(mol.dfinfo.auxbases, device=mol.device)
+
+
+def _df_fit(mol, params, dfset, omega=None):
+    """build_df_theta with the aux centres tied to the (traced) atom
+    positions, so that derivatives see them."""
+    meta_aux, params_aux = dfset
+    pa = dict(params_aux, atompos=params["basis"]["atompos"])
+    return build_df_theta(mol.meta, params["basis"], meta_aux, pa,
+                          omega=omega)
+
+
+def _make_theta(mol, params, occ, stats, grid=None, family=None,
+                 omegas=(), dfset=None):
+    """theta of either route: one-electron integrals and occupations; eri_k
+    (dense) or the fit df (DF); for KS the grid tables and the xc_params;
+    and per omega an erf-attenuated eri_lr_k{i} (dense) or its fit df_lr{i}
+    (DF). Each nao^4 tensor is built, laid out and its J-layout
+    intermediate freed before the next build starts. Stage seconds go into
+    `stats`: int1e_s; eri_s and eri_lr_s (dense); df_s with its split
+    coul2c_s, coul3c_s, factor_s, naux and metric_ratio, and df_lr_s with
+    the per-omega records df_lr (DF); grid_s."""
     dev = mol.device
 
     def sync():
@@ -392,13 +417,19 @@ def _dense_theta(mol, params, occ, stats, grid=None, family=None,
                              with_eri=False)
     sync()
     t1 = time.perf_counter()
-    scr = _screened(mol)
-    theta["eri_k"] = exchange_layout()
+    times = {"int1e_s": t1 - t0}
+    if dfset is None:
+        scr = _screened(mol)
+        theta["eri_k"] = exchange_layout()
+        sync()
+        times["eri_s"] = time.perf_counter() - t1
+    else:
+        theta["df"], info = _df_fit(mol, params, dfset)
+        times["df_s"] = time.perf_counter() - t1
+        times.update(info)
     theta["occ"] = occ
-    sync()
-    t2 = time.perf_counter()
-    times = {"int1e_s": t1 - t0, "eri_s": t2 - t1}
     if grid is not None:
+        t2 = time.perf_counter()
         theta["grid"] = setup_grid_theta(mol.meta, params["basis"], grid,
                                          family=family)
         theta["xc_params"] = params.get("xc_params")
@@ -406,16 +437,27 @@ def _dense_theta(mol, params, occ, stats, grid=None, family=None,
         times["grid_s"] = time.perf_counter() - t2
     if omegas:
         t3 = time.perf_counter()
+        lr_info = []
         for i, w in enumerate(omegas):
-            t = exchange_layout(omega=w)
-            # K1 counts its launches on these tensors under this tag
-            t.jk_tag = "eri_lr"
-            theta[f"eri_lr_k{i}"] = t
+            if dfset is None:
+                t = exchange_layout(omega=w)
+                # K1 counts its launches on these tensors under this tag
+                t.jk_tag = "eri_lr"
+                theta[f"eri_lr_k{i}"] = t
+            else:
+                theta[f"df_lr{i}"], info = _df_fit(mol, params, dfset,
+                                                   omega=w)
+                lr_info.append(dict(info, omega=w))
         sync()
-        times["eri_lr_s"] = time.perf_counter() - t3
+        if dfset is None:
+            times["eri_lr_s"] = time.perf_counter() - t3
+        else:
+            times["df_lr_s"] = time.perf_counter() - t3
+            times["df_lr"] = lr_info
     if stats is not None:
         stats.update(times)
-    log("theta built: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()))
+    log("theta built: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()
+                                    if k.endswith("_s")))
     return theta
 
 
@@ -423,17 +465,21 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
        opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
     """Hartree-Fock front end.
 
-    Every molecule takes the dense route: eri = eri_dense(...) and theta
-    carries its exchange layout eri_k = eri.permute(0,2,1,3), the tensor
-    the JAX package reaches through its blocked route at benzene size
-    (its byte limits are sized for a 16 GB chip). Above
-    config.DENSE_ERI_BYTES_LIMIT the blocked/streamed route is needed."""
-    _dense_route(mol, variational, opts, "Hartree-Fock")
+    A molecule without densityfit() takes the dense route: eri =
+    eri_dense(...) and theta carries its exchange layout eri_k =
+    eri.permute(0,2,1,3), the tensor the JAX package reaches through its
+    blocked route at benzene size (its byte limits are sized for a 16 GB
+    chip); above config.DENSE_ERI_BYTES_LIMIT it raises, naming
+    densityfit() and the blocked/streamed route (ROADMAP A12). A molecule
+    with densityfit() takes the DF route: RI-J and RI-K from the fit of
+    scf/df.py, no nao^4 tensor, no size limit."""
+    _route(mol, variational, opts, "Hartree-Fock")
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
+    dfset = _df_setup(mol)
 
     def build_theta(params, stats=None):
-        return _dense_theta(mol, params, occ, stats)
+        return _make_theta(mol, params, occ, stats, dfset=dfset)
 
     return SCF_QCCalc(mol, HFEngine(polarized=polarized),
                       build_theta=build_theta, opts=opts or SCFOptions())
@@ -445,22 +491,25 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
     """Kohn-Sham front end: LDA, GGA and meta-GGA functionals, hybrids
     (B3LYP, PBE0, TPSSh, ...), range-separated hybrids (CAM-B3LYP, LC-BLYP,
     lr_hf(omega) expressions) and CustomXC functionals, restricted or
-    polarized, on the dense route of HF plus the grid tables of
-    mol.setup_grid(). On the card every Fock build runs K1 for J and K (and
-    once more per omega for the long-range K), and K2/K3 for the density
-    and V_xc of a GGA or meta-GGA. A CustomXC's parameters are
-    differentiable inputs: energy_grad()['xc_params']."""
+    polarized, on HF's route (dense, or density-fitted after
+    mol.densityfit()) plus the grid tables of mol.setup_grid(). On the card
+    every Fock build of the dense route runs K1 for J and K (and once more
+    per omega for the long-range K); the DF route computes RI-J, RI-K when
+    the functional has exact exchange, and RI-K on each omega's
+    attenuated-metric fit. Both run K2/K3 for the density and V_xc of a GGA
+    or meta-GGA. A CustomXC's parameters are differentiable inputs:
+    energy_grad()['xc_params']."""
     xc = get_xc(xc)
-    _dense_route(mol, variational, opts, "Kohn-Sham",
-                 n_eri=1 + len(xc.exx_lr))
+    _route(mol, variational, opts, "Kohn-Sham", n_eri=1 + len(xc.exx_lr))
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     grid = mol.setup_grid()
     omegas = tuple(w for _, w in xc.exx_lr)
+    dfset = _df_setup(mol)
 
     def build_theta(params, stats=None):
-        return _dense_theta(mol, params, occ, stats, grid=grid,
-                            family=xc.family, omegas=omegas)
+        return _make_theta(mol, params, occ, stats, grid=grid,
+                            family=xc.family, omegas=omegas, dfset=dfset)
 
     calc = SCF_QCCalc(mol, KSEngine(xc, polarized=polarized),
                       build_theta=build_theta, opts=opts or SCFOptions())

@@ -2,9 +2,10 @@
 
 Mol is built on the host. It produces (meta, params) — the static shell
 metadata and the dict of differentiable tensors — plus occupation vectors;
-all physics downstream is plain functions of params. Density fitting, the
-on-disk cache and grid-tabulated external potentials are not ported yet and
-raise NotImplementedError here.
+all physics downstream is plain functions of params. `densityfit()` marks
+the molecule for the density-fitted route of HF/KS (mol.dfinfo). The on-disk
+cache and grid-tabulated external potentials are not ported yet and raise
+NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -19,7 +20,8 @@ from ..basis.loader import loadbasis, parse_gaussian94
 from ..grid.factory import get_predefined_grid
 from ..ops.shellstruct import pack_basis
 from ..utils.config import DTYPE, resolve_device
-from ..utils.datastruct import AtomCGTOBasis, CGTOBasis, SpinParam
+from ..utils.datastruct import (AtomCGTOBasis, CGTOBasis, DensityFitInfo,
+                                SpinParam)
 from ..utils.periodictable import get_atomz
 from ..utils.safeops import occnumber
 
@@ -136,6 +138,7 @@ class Mol:
         self.orthogonalize_basis = orthogonalize_basis
         self.grid_level = grid
         self._grid = None
+        self._dfinfo = None
 
     def _t(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -168,10 +171,32 @@ class Mol:
             raise ValueError("Restricted calculation requires spin 0")
         return 2.0 * occnumber(nup, nao, self.dtype, self.device)
 
-    # --- hooks not ported yet --------------------------------------------
+    # --- density fitting -------------------------------------------------
     def densityfit(self, method: str = "coulomb", auxbasis="autoaux"):
-        raise NotImplementedError(
-            "not ported yet: density fitting (ROADMAP A11)")
+        """Use density fitting for the two-electron integrals of HF/KS;
+        returns the molecule. auxbasis: "autoaux" for the generated
+        even-tempered fit (basis/autoaux.py), or any basis spec of Mol's
+        `basis` argument (a name is looked up in the registered basis
+        directories first, basis/loader.register_basis_dir)."""
+        if method != "coulomb":
+            raise NotImplementedError(
+                f"density-fitting method {method!r}: only 'coulomb' exists")
+        if isinstance(auxbasis, str) and auxbasis.lower() == "autoaux":
+            from ..basis.autoaux import autoaux
+            auxb = autoaux(self.atombases)
+        else:
+            auxb = [AtomCGTOBasis(atomz=zi, bases=bas_i, pos=ab.pos)
+                    for zi, bas_i, ab in zip(
+                        self.zs_int, resolve_atom_bases(self.zs_int, auxbasis),
+                        self.atombases)]
+        self._dfinfo = DensityFitInfo(method=method, auxbases=auxb)
+        return self
+
+    @property
+    def dfinfo(self) -> Optional[DensityFitInfo]:
+        return self._dfinfo
+
+    # --- hooks not ported yet --------------------------------------------
 
     def set_cache(self, fname: str, paramnames=None):
         raise NotImplementedError(

@@ -1,8 +1,7 @@
 """Core data structures: SpinParam and the basis containers.
 
 Counterpart of dqc_tpu/utils/datastruct.py. Plain dataclasses: PyTorch needs
-no pytree registration. ValGrad and DensityFitInfo come with the grid/XC and
-density-fitting parts of the port.
+no pytree registration. ValGrad comes with the property API (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -82,3 +81,11 @@ class AtomCGTOBasis:
     atomz: Union[int, float]
     bases: List[CGTOBasis]
     pos: Sequence[float]  # (3,) in Bohr
+
+
+@dataclass
+class DensityFitInfo:
+    """Density fitting of a molecule: the method ("coulomb") and the
+    auxiliary basis, one entry per atom in the molecule's atom order."""
+    method: str
+    auxbases: List[AtomCGTOBasis]

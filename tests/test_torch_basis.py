@@ -211,9 +211,10 @@ def test_mol_probes_and_hooks_not_ported_yet():
     with pytest.raises(ValueError):
         dqt.Mol("Xx 0 0 0", device="cpu")
     m = dqt.Mol(H2O, basis="sto-3g", device="cpu")
-    for call in (m.densityfit, lambda: m.set_cache("x")):
-        with pytest.raises(NotImplementedError):
-            call()
+    with pytest.raises(NotImplementedError):
+        m.set_cache("x")
+    assert m.dfinfo is None
+    assert m.densityfit() is m and m.dfinfo.method == "coulomb"
     assert m.setup_grid() is m.setup_grid()          # built once
     with pytest.raises(NotImplementedError):
         dqt.Mol(H2O, basis="sto-3g", device="cpu", vext=np.zeros(3))

@@ -399,3 +399,23 @@ def test_k_lr_on_the_card_launches_k1_or_raises():
                           rtol=1e-12, atol=0)
     with pytest.raises(ValueError):
         eng._k_lr({"eri_lr_k0": t}, dm.cpu(), 0)
+
+
+def test_df_b3lyp_on_the_card_launches_k2_k3_and_no_k1():
+    """H2O/def2-SVP B3LYP on the density-fitted route (grid 1): K2 and K3
+    once per Fock build (and K2 once more for the energy), K1 never (H2O is
+    below the SAD size, so no atomic SCF runs), theta without eri_k; the
+    energy equals the same call on the CPU to 1e-10 Ha."""
+    _need_card()
+    mol = dqt.Mol(H2O, basis="def2-svp", grid=1).densityfit()
+    hopper_jk.ds_jk.launches = 0
+    hopper_xc.ds_dens_gga.launches = hopper_xc.ds_vxc_gga.launches = 0
+    qc = dqt.KS(mol, xc="b3lyp").run()
+    builds = qc.stats["iterations"] + 1
+    assert "eri_k" not in qc._theta and "df" in qc._theta
+    assert hopper_jk.ds_jk.launches == 0
+    assert hopper_xc.ds_dens_gga.launches == builds + 1
+    assert hopper_xc.ds_vxc_gga.launches == builds
+    cpu = dqt.KS(dqt.Mol(H2O, basis="def2-svp", grid=1,
+                         device="cpu").densityfit(), xc="b3lyp").run()
+    assert abs(float(qc.energy()) - float(cpu.energy())) < 1e-10

@@ -2,6 +2,9 @@
 (pytest does not collect it):
 
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py camb3lyp scan nnxc
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py df_b3lyp df_camb3lyp
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+        df_b3lyp df_camb3lyp df_vitc
 
 For each functional named on the command line, one JSON line: the energy
 of dqc_tpu.KS(benzene/def2-SVP, grid=2, xc, SCFOptions(mixed=False)) (the
@@ -9,7 +12,22 @@ geometry of chip_smoke.benzene_desc), the seconds it took, the achieved
 DIIS residual and the tolerance. Takes minutes per functional on one core.
 "nnxc" is the family-2 neural functional of chip_smoke.py's nn_xc phase
 (nn_params_np, nn_edens: the same seed, parameters and formula), as a
-CustomXC of the JAX package.
+CustomXC of the JAX package. A name with the prefix "df_" runs the
+functional after it on the density-fitted route, mol.densityfit() with
+the generated autoaux basis (chip_smoke.py's df_b3lyp and df_cam_b3lyp
+phases); the line then also has naux. "df_vitc" is the workload of
+benchmarks/vitamin_c.py (vitamin C/cc-pVDZ, grid 2, densityfit(),
+lda_x+lda_c_pw).
+
+--factored: the JAX package's fit is contracted in factored form. Its
+build_df_theta returns j3c and v_inv = j2c^+ (eigh pseudo-inverse above
+1e-12 of the largest eigenvalue), and df_j/df_k contract j3c with the
+explicit v_inv, which loses about eps * cond(j2c) to cancellation (up to
+1e-6 relative in K with an erf-attenuated metric). With the flag,
+dqc_tpu.scf.df.build_df_theta is replaced for the run by the same pseudo-
+inverse in factored form: j3c -> j3c V diag(w^-1/2) on the kept spectrum
+and v_inv -> I, so that df_j and df_k, unchanged, compute the same function
+without the cancellation. Nothing else of the JAX package changes.
 
 The JAX package refuses range separation on its blocked J/K route, which it
 takes at this size (its dense limit is 600 MiB); for a functional with
@@ -82,25 +100,78 @@ def resolve(name):
     return name
 
 
-def main(names):
+def factored_build_df_theta(meta, params, meta_aux, params_aux, omega=None):
+    """dqc_tpu.scf.df.build_df_theta's pseudo-inverse in factored form
+    (module docstring)."""
+    from dqc_tpu.ops.eri import coul2c, coul3c
+    j2c = coul2c(meta_aux, params_aux, omega=omega)
+    j3c = coul3c(meta, params, meta_aux, params_aux, omega=omega)
+    w, v = jnp.linalg.eigh(j2c)
+    keep = w > 1e-12 * w[-1]
+    f = jnp.where(keep, 1.0 / jnp.sqrt(jnp.where(keep, w, 1.0)), 0.0)
+    return {"j3c": jnp.einsum("ijp,pq->ijq", j3c, v * f[None, :]),
+            "v_inv": jnp.eye(w.shape[0], dtype=w.dtype)}
+
+
+VITAMIN_C = """O 0.1761 -2.0912 1.2179; O -2.5390 0.1686 -2.6197;
+O 1.5859 4.5166 0.5374; O -7.3565 -0.3855 -0.6285;
+O 5.7108 1.0762 -1.1444; O 3.7634 -4.0742 -0.2600;
+C -0.6419 0.4947 1.4840; C -3.0347 0.8664 -0.0624;
+C 1.5518 1.9398 0.5456; C -5.1899 -0.7714 0.9190;
+C 3.4161 0.4295 -0.1982; C 2.5579 -2.1696 0.2094;
+H -0.9740 0.8710 3.4930; H -3.6211 2.8520 -0.0816;
+H -4.7222 -2.7845 0.8222; H -5.6716 -0.2763 2.8684;
+H -2.0785 -1.6104 -2.6430; H 0.0074 5.0941 1.2812;
+H -8.6971 -1.4445 0.0486; H 6.6186 -0.4860 -1.4846"""
+
+
+def main(names, factored=False):
+    if factored:
+        from dqc_tpu.scf import df as jdf
+        jdf.build_df_theta = factored_build_df_theta
     for name in names:
-        xc = resolve(name)
+        if name == "df_vitc":
+            t0 = time.perf_counter()
+            mol = dqc_tpu.Mol(VITAMIN_C, basis="cc-pvdz", grid=2).densityfit()
+            opts = JOptions(mixed=False)
+            qc = dqc_tpu.KS(mol, xc="lda_x+lda_c_pw", opts=opts).run()
+            print(json.dumps({
+                "system": "vitamin C", "basis": "cc-pvdz", "grid": 2,
+                "xc": "lda_x+lda_c_pw", "route": "df", "factored": factored,
+                "energy_ha": float(qc.energy()), "nao": mol.meta.nao,
+                "seconds": time.perf_counter() - t0,
+                "residual": getattr(qc, "_achieved_err", None),
+                "tol": opts.tol, "backend": jax.default_backend()}),
+                flush=True)
+            continue
+        df = name.startswith("df_")
+        xc = resolve(name[3:] if df else name)
         t0 = time.perf_counter()
         opts = JOptions(mixed=False)
         dense_limit = jqccalc.DENSE_ERI_BYTES_LIMIT
-        if get_xc(xc).exx_lr:
+        if get_xc(xc).exx_lr and not df:
             jqccalc.DENSE_ERI_BYTES_LIMIT = 4 * 1024 ** 3
         mol = dqc_tpu.Mol(benzene_desc(), basis="def2-svp", grid=2)
+        if df:
+            mol = mol.densityfit()
         qc = dqc_tpu.KS(mol, xc=xc, opts=opts).run()
         e = float(qc.energy())
         jqccalc.DENSE_ERI_BYTES_LIMIT = dense_limit
-        print(json.dumps({
+        route = ("df" if "df" in qc._theta else
+                 "dense" if "eri" in qc._theta else "blocked")
+        rec = {
             "system": "benzene", "basis": "def2-svp", "grid": 2, "xc": name,
             "energy_ha": e, "seconds": time.perf_counter() - t0,
             "residual": getattr(qc, "_achieved_err", None),
-            "tol": opts.tol, "jk_route": "dense" if "eri" in qc._theta
-            else "blocked", "backend": jax.default_backend()}), flush=True)
+            "tol": opts.tol, "jk_route": route, "factored": factored,
+            "backend": jax.default_backend()}
+        if df:
+            rec["naux"] = int(qc._theta["df"]["v_inv"].shape[0])
+        print(json.dumps(rec), flush=True)
 
 
 if __name__ == "__main__":
-    main(sys.argv[1:] or ["camb3lyp", "scan", "nnxc"])
+    args = sys.argv[1:]
+    factored = "--factored" in args
+    args = [a for a in args if a != "--factored"]
+    main(args or ["camb3lyp", "scan", "nnxc"], factored=factored)

@@ -13,7 +13,16 @@ Prints one JSON line per case:
 - `h2o_b3lyp_def2svp`: H2O B3LYP/def2-SVP on the level-2 grid, tol 1e-11
   (d shells, no degenerate level): max |dF| between the port's energy_grad
   and jax.grad of the JAX package's energy_fn.
-Takes a few minutes on one core, most of it JAX compiles.
+- `benzene_df_metric_sto3g`: the density fit's own derivative, apart from
+  the SCF's. At a fixed density (the port's converged DF HF density of
+  benzene/STO-3G, autoaux), E_J(R) = 1/2 <J_fit(R; dm), dm> with the fit
+  rebuilt from the positions: dE_J/dR of the JAX package (jax.grad through
+  build_df_theta, whose v_inv takes safe_eigh's eigenvector rule on a
+  metric with degenerate eigenvalues) and of the port (Cholesky), each
+  with its mirror gap, and central differences of the port's E_J (h = 1e-4
+  Bohr) in two coordinates.
+Takes a few minutes on one core, most of it JAX compiles. Name cases on
+the command line to run only those.
 """
 import json
 import os
@@ -126,7 +135,61 @@ def h2o():
             "gmres": qc.stats["gmres"]}
 
 
+def benzene_df_metric():
+    from dqc_tpu.ops.shellstruct import pack_basis as jpack
+    from dqc_tpu.scf import df as jdf
+    from dqc_tpu_torch.ops.shellstruct import pack_basis as tpack
+    from dqc_tpu_torch.scf import df as tdf
+    desc = benzene_desc()
+    mol = dqt.Mol(desc, basis="sto-3g", device="cpu").densityfit()
+    dm = dqt.HF(mol, opts=dqt.SCFOptions(tol=1e-11)).run()._dm.detach()
+    meta_aux, params_aux = tpack(mol.dfinfo.auxbases)
+
+    def e_port(pos):
+        p = dict(mol.params, atompos=pos)
+        pa = dict(params_aux, atompos=pos)
+        df, _ = tdf.build_df_theta(mol.meta, p, meta_aux, pa)
+        return 0.5 * (tdf.df_j(df, dm) * dm).sum()
+    pos0 = mol.params["atompos"].detach()
+    pos = pos0.clone().requires_grad_(True)
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(e_port(pos), pos)
+    F = -g.numpy()
+    rec = {"port": dict(summary(F), seconds=time.perf_counter() - t0)}
+    fd = []
+    with torch.no_grad():
+        for atom, axis in ((0, 0), (2, 1)):
+            es = []
+            for s in (1, -1):
+                q = pos0.clone()
+                q[atom, axis] += s * 1e-4
+                es.append(float(e_port(q)))
+            d = -(es[0] - es[1]) / 2e-4
+            fd.append({"atom": atom, "axis": axis, "fd": d,
+                       "abs_diff": abs(d - float(F[atom, axis]))})
+    rec["port"]["central_differences"] = fd
+    jm = dqc_tpu.Mol(desc, basis="sto-3g").densityfit()
+    jmeta_aux, jparams_aux = jpack(jm.dfinfo.auxbases)
+    dm_np = dm.numpy()
+
+    def e_jax(pos):
+        p = dict(jm.params)
+        p["atompos"] = pos
+        pa = dict(jparams_aux)
+        pa["atompos"] = pos
+        df = jdf.build_df_theta(jm.meta, p, jmeta_aux, pa)
+        return 0.5 * (jdf.df_j(df, dm_np) * dm_np).sum()
+    t0 = time.perf_counter()
+    Fj = -np.asarray(jax.jit(jax.grad(e_jax))(jm.params["atompos"]))
+    rec["jax"] = dict(summary(Fj), seconds=time.perf_counter() - t0)
+    rec["max_abs_dF_port_vs_jax"] = float(np.abs(F - Fj).max())
+    return rec
+
+
+CASES = {"benzene_hf_sto3g": benzene, "h2o_b3lyp_def2svp": h2o,
+         "benzene_df_metric_sto3g": benzene_df_metric}
+
 if __name__ == "__main__":
     torch.set_num_threads(1)
-    print(json.dumps({"benzene_hf_sto3g": benzene()}), flush=True)
-    print(json.dumps({"h2o_b3lyp_def2svp": h2o()}), flush=True)
+    for name in sys.argv[1:] or list(CASES):
+        print(json.dumps({name: CASES[name]()}), flush=True)
