@@ -16,9 +16,13 @@ parameter gradient on the same molecule; B3LYP on vitamin C/cc-pVDZ (nao =
 208, the dense route past nao 128); then the density-fitted route
 (`mol.densityfit()`, autoaux): B3LYP and CAM-B3LYP on benzene against
 JAX-CPU anchors, its forces, the reference's vitamin C workload (LDA), a
-benzene dimer (nao 228) whose dense ERI the port refuses, and the O2
-triplet (UKS-LDA) against PySCF. Any failed check or exception ends the
-run with a non-zero exit code. Without a CUDA device it fails at once and
+benzene dimer (nao 228) whose dense ERI does not fit the dense route, and
+the O2 triplet (UKS-LDA) against PySCF; then the exact routes past the
+dense limit (the canonical quartet blocks of scf/jk.py cached, or streamed
+on every Fock build): B3LYP on benzene and its forces, and on vitamin C,
+against the dense route in the same run, the streamed route on benzene, and
+the dimer without densityfit(). Any failed check or exception ends the run
+with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
 One JSON object per line: `device`, the card's name and power limit as
@@ -43,7 +47,12 @@ against central differences), `vitamin_c`, `df_b3lyp`, `df_cam_b3lyp`
 (each with `parts`: the device time of RI-J, RI-K, K2, K3 and eigh at the
 converged dm, each under torch.profiler), `df_forces` and `df_forces_fd`,
 `df_vitamin_c`, `df_beyond_dense` (K2/K3 at nao 228 against their plain
-versions), `df_uks_o2`, `small`, `kernels` (K3's row
+versions), `df_uks_o2`, `blocked_b3lyp` (J and K against K1's on the dense
+eri_k, and a repeat of them bit for bit), `blocked_forces`,
+`stream_b3lyp`, `blocked_vitamin_c` (beside `vitamin_c`: the block build's
+seconds against eri_dense's, the peaks, the allocator's retries and the
+bra blocks coulomb_contract chose in both), `blocked_beyond_dense`,
+`small`, `kernels` (K3's row
 also has its registers and spills from this run's ptxas report; every row
 its launches on every path, K1's also on the erf tensor: each path's own
 SCF, with those of the atomic SCFs of its SAD start apart), and as the last
@@ -53,13 +62,16 @@ Imports the port only; nothing of JAX and nothing of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
 import re
 import subprocess
 import sys
 import time
+from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
+from contextlib import contextmanager
 
 import numpy as np
 import torch
@@ -71,8 +83,9 @@ if not torch.cuda.is_available():
 
 import dqc_tpu_torch as dq                                    # noqa: E402
 from dqc_tpu_torch.ops import (                               # noqa: E402
-    _nvcc, hopper_jk, hopper_xc, integrals)
-from dqc_tpu_torch.ops.hopper_jk import ds_jk, ds_jk_reference  # noqa: E402
+    _nvcc, eri, hopper_jk, hopper_xc, integrals)
+from dqc_tpu_torch.ops.hopper_jk import (                     # noqa: E402
+    ds_jk, ds_jk_kplanes, ds_jk_reference)
 from dqc_tpu_torch.ops.hopper_xc import (                     # noqa: E402
     ds_dens_gga, ds_dens_reference, ds_vxc_gga, ds_vxc_reference)
 from dqc_tpu_torch.scf import qccalc                         # noqa: E402
@@ -176,8 +189,68 @@ O2_DF_PYSCF = ("O -1 0 0; O 1 0 0", "6-311++G**", 3, -149.259475, 1.3e-3)
 # what stats holds for the DF route (scf/qccalc._make_theta)
 DF_STATS = ("df_s", "coul2c_s", "coul3c_s", "coul3c_classes", "factor_s",
             "naux", "metric_ratio", "naux_kept", "df_lr_s", "df_lr")
+# and for the blocked and streamed routes
+EXACT_STATS = ("jk_blocks_s", "jk_blocks_bytes", "jk_combos", "jk_facs_s",
+               "warm_df_s", "warm_naux")
+# the blocked route against the dense one in the same run: energies (Ha),
+# J and K at one dm against K1's on eri_k (relative to the largest entry),
+# forces (Ha/Bohr) and their mirror gap; the streamed route's energy
+BLOCKED_E_GATE_HA = 1e-9
+BLOCKED_JK_GATE_REL = 1e-10
+BLOCKED_FORCE_GATE = 1e-9
+BLOCKED_MIRROR_GATE = 1e-10
+STREAM_E_GATE_HA = 1e-8
 
 ANGSTROM_TO_BOHR = 1.0 / 0.529177210903
+
+
+@contextmanager
+def route_limits(dense=None, blocked=None):
+    """config's byte limits of the dense and blocked routes set for the
+    phase inside (the route is chosen when HF/KS is called, the SAD atoms'
+    when run() starts them), and restored after it."""
+    cfg = qccalc.config
+    old = (cfg.DENSE_ERI_BYTES_LIMIT, cfg.BLOCKED_JK_BYTES_LIMIT)
+    try:
+        if dense is not None:
+            cfg.DENSE_ERI_BYTES_LIMIT = dense
+        if blocked is not None:
+            cfg.BLOCKED_JK_BYTES_LIMIT = blocked
+        yield
+    finally:
+        cfg.DENSE_ERI_BYTES_LIMIT, cfg.BLOCKED_JK_BYTES_LIMIT = old
+
+
+# the bra blocks coulomb_contract's _auto_block chose since the list was
+# cleared: (bra pairs n, rows per block)
+_AUTO_BLOCKS = []
+
+
+def _record_auto_block(auto_block):
+    def recorded(n, *args):
+        b = auto_block(n, *args)
+        _AUTO_BLOCKS.append((n, b))
+        return b
+    return recorded
+
+
+def auto_blocks():
+    """[[n, rows per block, calls], ...] since _AUTO_BLOCKS was cleared."""
+    return [[n, b, c] for (n, b), c in sorted(Counter(_AUTO_BLOCKS).items())]
+
+
+def free_device():
+    """Frees what the last phase left on the card before the next one reads
+    its peak: a dense calc survives its energy_grad in a reference cycle
+    until the garbage collector runs, and holds its tensors until then."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def alloc_retries():
+    """The caching allocator's count of cudaMalloc retries (after freeing
+    its cache) since the process started."""
+    return torch.cuda.memory_stats().get("num_alloc_retries", 0)
 
 
 def emit(obj):
@@ -654,17 +727,17 @@ def path_counts():
     return {k: v - sad[k] for k, v in _all_counts().items()}
 
 
-def check_launches(name, eng, launches, per_it, builds, df=False):
+def check_launches(name, eng, launches, per_it, builds, dense=True):
     """Gates on a restricted path's own launches. One steady iteration
     (per_it, measured by iteration_profile) launches K1 once, and once more
-    per omega of the long-range exchange (none on the density-fitted route,
-    df), and K2 and K3 once for a GGA or meta-GGA; the SCF launches that for
-    each of its Fock builds, and one more K1 pass (on each tensor) and one
-    more K2 for its energy."""
+    per omega of the long-range exchange (none on the density-fitted,
+    blocked and streamed routes: dense=False), and K2 and K3 once for a GGA
+    or meta-GGA; the SCF launches that for each of its Fock builds, and one
+    more K1 pass (on each tensor) and one more K2 for its energy."""
     xc = getattr(eng, "xc", None)
-    n_lr = 0 if xc is None or df else len(xc.exx_lr)
+    n_lr = 0 if xc is None or not dense else len(xc.exx_lr)
     gga = int(xc is not None and xc.family >= 2)
-    want_it = {"ds_jk": 0 if df else 1 + n_lr, "ds_dens_gga": gga,
+    want_it = {"ds_jk": 1 + n_lr if dense else 0, "ds_dens_gga": gga,
                "ds_vxc_gga": gga, "ds_jk_eri_lr": n_lr}
     if per_it != want_it:
         fail(f"{name}: one iteration launched {per_it}, expected {want_it}")
@@ -679,11 +752,11 @@ def plain_ks_energy(calc, dm):
     """The energy of a restricted KS calc at dm through the plain versions
     of all three kernels (J and K, each long-range K, rho and grad rho; the
     lapl and tau of a meta-GGA are plain torch on either path, and so are
-    RI-J and RI-K on the density-fitted route)."""
+    J and K on the density-fitted, blocked and streamed routes)."""
     eng, theta = calc.engine, calc._theta
     grid = theta["grid"]
     with torch.no_grad():
-        if "df" in theta:
+        if "eri_k" not in theta:
             j, k = eng.jk_parts(dm, theta)
             klr = eng.lr_parts(dm, theta)
         else:
@@ -760,11 +833,12 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None,
     shares: the SCF converged, the energy within `gate` of its anchor
     (when it has one), the plain path within KS_PLAIN_GATE_HA, tr(D S) =
     nelec, the SAD start, the launches of one iteration and of the SCF
-    (check_launches). A molecule with densityfit() takes the DF route:
-    theta holds no eri_k, and K1 is launched by the SAD atoms only.
-    Returns (calc, record)."""
+    (check_launches). A molecule with densityfit() takes the DF route, one
+    past the dense limit the blocked one: theta holds no eri_k, and K1 is
+    launched by the SAD atoms only. Returns (calc, record)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     calc = dq.KS(mol, xc=xc, opts=opts)
     reset_counts()
@@ -782,11 +856,11 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None,
     profile = iteration_profile(calc.engine, theta, dm, smi_line)
     trace_ds = float(torch.einsum("ij,ji->", dm, theta["ovlp"]))
     iters = st["iterations"]
-    df = mol.dfinfo is not None
+    route = st["jk_mode"]
     rec = {"nao": mol.meta.nao, "ngrid": int(theta["grid"]["dvol"].shape[0]),
            "family": calc.engine.xc.family,
            "exx_fraction": calc.engine.xc.exx_fraction,
-           "exx_lr": calc.engine.xc.exx_lr, "route": "df" if df else "dense",
+           "exx_lr": calc.engine.xc.exx_lr, "route": route,
            "guess": st.get("guess"), "sad_s": st.get("sad_s"),
            "sad_elements": st.get("sad_elements"),
            "int1e_s": st["int1e_s"], "eri_dense_s": st.get("eri_s"),
@@ -801,16 +875,19 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None,
            "launches": launches, "launches_sad": launches_sad,
            "fock_builds": iters + 1, "iteration_profile": profile,
            "trace_dm_ovlp": trace_ds, "peak_device_bytes": peak,
-           "card": smi_line}
+           "device_bytes_at_start": at_start, "card": smi_line}
     if not np.isfinite(e) or tuple(dm.shape) != (mol.meta.nao,) * 2:
         fail(f"{name}: energy not finite or dm of the wrong shape")
     if not st["residual"] <= calc.opts.tol:
         fail(f"{name}: residual {st['residual']:.3e} above tol "
              f"{calc.opts.tol}")
-    if df:
-        rec.update({k: st[k] for k in DF_STATS if k in st})
+    if route != calc.jk_mode:
+        fail(f"{name}: theta of route {route!r}, the calc chose "
+             f"{calc.jk_mode!r}")
+    if route != "dense":
+        rec.update({k: st[k] for k in DF_STATS + EXACT_STATS if k in st})
         if "eri_k" in theta or "eri_s" in st:
-            fail(f"{name}: the DF route built a dense ERI")
+            fail(f"{name}: the {route} route built a dense ERI")
     if anchor is not None and abs(e - anchor) > gate:
         fail(f"{name}: energy {e!r} vs anchor {anchor!r} (gate {gate})")
     if abs(e - e_plain) > KS_PLAIN_GATE_HA:
@@ -821,7 +898,7 @@ def ks_phase(name, mol, xc, anchor, smi_line, nelec=NELEC, opts=None,
         fail(f"{name}: the SCF started from {rec['guess']!r}, expected 'sad'")
     check_launches(name, calc.engine, launches,
                    profile["port_kernel_launches_per_iteration"],
-                   rec["fock_builds"], df=df)
+                   rec["fock_builds"], dense=route == "dense")
     return calc, rec
 
 
@@ -957,8 +1034,12 @@ def vitamin_c(smi_line):
     """B3LYP on vitamin C/cc-pVDZ (nao = 208): the dense route past nao
     128 (K1's streamed-dm plan, K2/K3 with two panels) on a real SCF."""
     mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2)
+    retries = alloc_retries()
+    _AUTO_BLOCKS.clear()
     calc, rec = ks_phase("vitamin_c", mol, "b3lyp", None, smi_line,
                          nelec=VITAMIN_C_NELEC)
+    rec.update(alloc_retries=alloc_retries() - retries,
+               auto_blocks=auto_blocks())
     n = mol.meta.nao
     rec["eri_bytes"] = 8 * n ** 4
     rec["peak_over_eri"] = rec["peak_device_bytes"] / rec["eri_bytes"]
@@ -990,20 +1071,26 @@ def vitamin_c(smi_line):
     return rec
 
 
-def df_parts(calc, smi_line, reps=5):
-    """Device time of each part of one steady DF iteration at the converged
-    dm: RI-J, RI-K (when the functional has exact exchange), RI-K on each
-    long-range fit, K2 and K3 (GGA), and eigh of the orthogonalised Fock
+def route_parts(calc, smi_line, reps=5):
+    """Device time of each part of one steady iteration of the DF or the
+    blocked route at the converged dm: RI-J, RI-K (when the functional has
+    exact exchange) and RI-K on each long-range fit, or the block
+    contraction (J, and K when the functional has exact exchange, in one
+    pass: jk_blocks); K2 and K3 (GGA), and eigh of the orthogonalised Fock
     matrix; per call, under torch.profiler (device_ms: the kernels launched
     in the part's labelled range) and by CUDA events (event_ms)."""
     eng, theta = calc.engine, calc._theta
     dm = calc.aodm().contiguous()
     grid = theta["grid"]
-    parts = {"ri_j": lambda: df_j(theta["df"], dm)}
-    if eng.xc.exx_fraction != 0.0:
-        parts["ri_k"] = lambda: df_k(theta["df"], dm)
-    for i in range(len(eng.xc.exx_lr)):
-        parts[f"ri_k_lr{i}"] = lambda i=i: df_k(theta[f"df_lr{i}"], dm)
+    want_k = eng.xc.exx_fraction != 0.0
+    if "df" in theta:
+        parts = {"ri_j": lambda: df_j(theta["df"], dm)}
+        if want_k:
+            parts["ri_k"] = lambda: df_k(theta["df"], dm)
+        for i in range(len(eng.xc.exx_lr)):
+            parts[f"ri_k_lr{i}"] = lambda i=i: df_k(theta[f"df_lr{i}"], dm)
+    else:
+        parts = {"jk_blocks": lambda: eng._exact_jk(theta, dm, True, want_k)}
     if eng.xc.family >= 2:
         ao, ag = grid["ao"], grid["ao_grad"]
         rho, gdot = ds_dens_reference(ao, ag, dm)
@@ -1029,13 +1116,13 @@ def df_parts(calc, smi_line, reps=5):
         # range's device time is that of the kernels launched inside it
         with torch.profiler.profile(activities=acts) as prof:
             for name, fn in parts.items():
-                with torch.profiler.record_function(f"df_part:{name}"):
+                with torch.profiler.record_function(f"part:{name}"):
                     for _ in range(reps):
                         fn()
                     torch.cuda.synchronize()
         events = prof.key_averages()
         for name, fn in parts.items():
-            evs = [e for e in events if e.key == f"df_part:{name}"]
+            evs = [e for e in events if e.key == f"part:{name}"]
             # the host-side range sums its kernels' device time; without
             # it, the device-side annotation's span
             host = [e.device_time_total for e in evs
@@ -1047,9 +1134,10 @@ def df_parts(calc, smi_line, reps=5):
             out[name] = {"device_ms": None if us is None
                          else us / reps / 1e3,
                          "event_ms": time_ms(fn, reps)}
-    b = theta["df"]["B"]
-    out["B_bytes"] = b.numel() * 8
-    out["B_shape"] = list(b.shape)
+    if "df" in theta:
+        b = theta["df"]["B"]
+        out["B_bytes"] = b.numel() * 8
+        out["B_shape"] = list(b.shape)
     out["card"] = smi_line
     return out
 
@@ -1065,7 +1153,7 @@ def df_b3lyp(smi_line):
     rec["energy_minus_own_fit_anchor_ha"] = (rec["energy_ha"]
                                              - DF_ANCHOR_OWN_FIT_HA)
     rec["theta_zz"] = quadrupole_zz(calc)
-    rec["parts"] = df_parts(calc, smi_line)
+    rec["parts"] = route_parts(calc, smi_line)
     emit({"df_b3lyp": rec})
     return rec
 
@@ -1081,7 +1169,7 @@ def df_cam_b3lyp(smi_line):
                                              - DF_CAM_ANCHOR_OWN_FIT_HA)
     lr = [k for k in calc._theta if k.startswith("df_lr")]
     rec["lr_fits"] = lr
-    rec["parts"] = df_parts(calc, smi_line)
+    rec["parts"] = route_parts(calc, smi_line)
     emit({"df_cam_b3lyp": rec})
     if lr != ["df_lr0"] or [r["omega"] for r in rec["df_lr"]] != [0.33]:
         fail(f"df_cam_b3lyp: long-range fits {lr}, {rec['df_lr']}")
@@ -1149,7 +1237,7 @@ def df_vitamin_c(smi_line, dense):
                dense_phase_eri_dense_s=dense["eri_dense_s"],
                dense_phase_peak_device_bytes=dense["peak_device_bytes"],
                dense_phase_xc="b3lyp", gate_ha=VITC_DF_GATE_HA,
-               parts=df_parts(calc, smi_line))
+               parts=route_parts(calc, smi_line))
     emit({"df_vitamin_c": rec})
     return rec
 
@@ -1167,26 +1255,17 @@ def quadrupole_zz(calc):
         return 0.5 * float(nuc - (dm * q).sum())
 
 
-def df_beyond_dense(smi_line, e_df_benzene, theta_zz):
-    """Two benzenes DIMER_SHIFT_BOHR apart (nao 228): the dense route
-    refuses the 21.6 GB ERI; the DF route gives twice the df_b3lyp energy
-    plus the two quadrupoles' interaction, with K2 and K3 at nao 228
-    against their plain versions."""
+def dimer_desc():
+    """Two benzenes, the second DIMER_SHIFT_BOHR along z."""
     shifted = "; ".join(
         f"{a.split()[0]} {a.split()[1]} {a.split()[2]} {DIMER_SHIFT_BOHR}"
         for a in benzene_desc().split("; "))
-    mol = dq.Mol(benzene_desc() + "; " + shifted, basis="def2-svp", grid=2)
-    nao = mol.meta.nao
-    try:
-        dq.KS(mol, xc="b3lyp")
-        fail("df_beyond_dense: the dense route took the dimer")
-    except NotImplementedError as ex:
-        refusal = str(ex)
-    mol.densityfit()
-    e_qq = 6.0 * theta_zz ** 2 / DIMER_SHIFT_BOHR ** 5
-    calc, rec = ks_phase("df_beyond_dense", mol, "b3lyp",
-                         2 * e_df_benzene + e_qq, smi_line, nelec=2 * NELEC,
-                         gate=DIMER_GATE_HA)
+    return benzene_desc() + "; " + shifted
+
+
+def dimer_kernel_checks(calc):
+    """K2 and K3 at the dimer's shape (nao 228, two panels) against their
+    plain versions, at the converged dm and the real vrho, vgrad."""
     grid = calc._theta["grid"]
     dm = calc.aodm().contiguous()
     ao, ag = grid["ao"], grid["ao_grad"]
@@ -1194,10 +1273,31 @@ def df_beyond_dense(smi_line, e_df_benzene, theta_zz):
     _, vbar = integrate._pointwise_adjoints(
         calc.engine.xc, {"rho": rho, "grad": gdot}, grid["dvol"], False, None)
     vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
-    checks = [check_dens(ao, ag, dm, "dimer grid (nao 228), converged dm"),
-              check_vxc(ao, ag, vr, vg, "dimer grid, real vrho/vgrad")]
+    return [check_dens(ao, ag, dm, "dimer grid (nao 228), converged dm"),
+            check_vxc(ao, ag, vr, vg, "dimer grid, real vrho/vgrad")]
+
+
+def df_beyond_dense(smi_line, e_df_benzene, theta_zz):
+    """Two benzenes DIMER_SHIFT_BOHR apart (nao 228): the 21.6 GB ERI does
+    not fit the dense route; the DF route gives twice the df_b3lyp energy
+    plus the two quadrupoles' interaction, with K2 and K3 at nao 228
+    against their plain versions."""
+    mol = dq.Mol(dimer_desc(), basis="def2-svp", grid=2)
+    nao = mol.meta.nao
+    # without densityfit() the calc takes a route past the dense one
+    route = dq.KS(mol, xc="b3lyp").jk_mode
+    if route == "dense":
+        fail("df_beyond_dense: the dense route took the dimer")
+    mol.densityfit()
+    e_qq = 6.0 * theta_zz ** 2 / DIMER_SHIFT_BOHR ** 5
+    calc, rec = ks_phase("df_beyond_dense", mol, "b3lyp",
+                         2 * e_df_benzene + e_qq, smi_line, nelec=2 * NELEC,
+                         gate=DIMER_GATE_HA)
+    checks = dimer_kernel_checks(calc)
+    grid = calc._theta["grid"]
+    ao = grid["ao"]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    rec.update(dense_refusal=refusal, dense_eri_bytes=8 * nao ** 4,
+    rec.update(route_without_densityfit=route, dense_eri_bytes=8 * nao ** 4,
                dense_limit_bytes=qccalc.config.DENSE_ERI_BYTES_LIMIT,
                shift_bohr=DIMER_SHIFT_BOHR,
                energy_minus_twice_df_b3lyp_ha=rec["energy_ha"]
@@ -1206,7 +1306,7 @@ def df_beyond_dense(smi_line, e_df_benzene, theta_zz):
                kernel_checks=checks,
                ds_dens_gga_plan=hopper_xc.dens_plan(ao.shape[0], nao, sms),
                ds_vxc_gga_plan=hopper_xc.vxc_plan(ao.shape[0], nao, sms),
-               parts=df_parts(calc, smi_line))
+               parts=route_parts(calc, smi_line))
     emit({"df_beyond_dense": rec})
     if nao != 228 or rec["ngrid"] != 156288:
         fail(f"df_beyond_dense: nao {nao}, ng {rec['ngrid']}; expected 228 "
@@ -1264,6 +1364,215 @@ def df_uks_o2(smi_line):
     return rec
 
 
+def blocked_b3lyp(smi_line, dense, eri_k):
+    """Benzene B3LYP/def2-SVP on the blocked route (the dense limit set to
+    0): the canonical quartet blocks cached in theta and contracted on every
+    Fock build. Against the dense main_path_ks of this run: the energy, and
+    J and K at the converged dm against K1's on its eri_k; the same blocks
+    and dm contracted twice give the same bits."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    with route_limits(dense=0):
+        calc, rec = ks_phase("blocked_b3lyp", mol, "b3lyp", KS_ANCHOR_HA,
+                             smi_line)
+    theta, eng = calc._theta, calc.engine
+    dm = calc.aodm().contiguous()
+    with torch.no_grad():
+        j1, k1 = eng.jk_parts(dm, theta)
+        j2, k2 = eng.jk_parts(dm, theta)
+        jd, kd = ds_jk_kplanes(eri_k, dm)
+    rel = {name: float((a - r).abs().max() / r.abs().max())
+           for name, a, r in (("j", j1, jd), ("k", k1, kd))}
+    repeats = bool(torch.equal(j1, j2) and torch.equal(k1, k2))
+    e = rec["energy_ha"]
+    rec.update(energy_dense_ha=dense["energy_ha"],
+               energy_minus_dense_ha=e - dense["energy_ha"],
+               j_rel_err_vs_k1=rel["j"], k_rel_err_vs_k1=rel["k"],
+               bit_identical_repeat=repeats,
+               parts=route_parts(calc, smi_line))
+    emit({"blocked_b3lyp": rec})
+    if rec["route"] != "blocked":
+        fail(f"blocked_b3lyp: route {rec['route']!r}, expected 'blocked'")
+    if abs(e - dense["energy_ha"]) > BLOCKED_E_GATE_HA:
+        fail(f"blocked_b3lyp: energy {e!r} vs the dense route's "
+             f"{dense['energy_ha']!r}")
+    if not max(rel.values()) <= BLOCKED_JK_GATE_REL:
+        fail(f"blocked_b3lyp: J, K against K1's: {rel}")
+    if not repeats:
+        fail("blocked_b3lyp: two contractions of the same blocks and dm "
+             "differ")
+    return rec
+
+
+def blocked_forces(smi_line, dense):
+    """energy_grad() of benzene B3LYP on the blocked route (tol 1e-11),
+    against the dense forces phase of this run: the forces, their mirror
+    gap and sum; no K1 inside the gradient."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    with route_limits(dense=0):
+        calc = dq.KS(mol, xc="b3lyp", opts=dq.SCFOptions(tol=1e-11))
+        calc.run()
+    torch.cuda.synchronize()
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    g = calc.energy_grad()
+    launches = path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    F = -g["basis"]["atompos"].detach().cpu().numpy()
+    dF = float(np.abs(F - np.asarray(dense["forces"])).max())
+    mirror = max(float(np.abs(F - mirror_forces(F, ax)).max())
+                 for ax in (0, 1))
+    sumF = float(np.abs(F.sum(0)).max())
+    rec = {"system": "benzene", "basis": "def2-svp", "method": "RKS-B3LYP",
+           "route": calc.jk_mode, "grid": 2, "tol": 1e-11,
+           "energy_ha": float(calc.energy()),
+           "energy_minus_dense_forces_phase_ha":
+               float(calc.energy()) - dense["energy_ha"],
+           "max_abs_dF_vs_dense": dF, "max_abs_mirror_gap": mirror,
+           "max_abs_sum_F": sumF, "grad_s": calc.stats["grad_s"],
+           "grad_forward_s": calc.stats["grad_forward_s"],
+           "grad_backward_s": calc.stats["grad_backward_s"],
+           "gmres": calc.stats["gmres"], "launches_in_gradient": launches,
+           "peak_device_bytes_gradient": peak,
+           "dense_peak_device_bytes_gradient":
+               dense["peak_device_bytes_gradient"],
+           "scf_iterations": calc.stats["iterations"],
+           "residual": calc.stats["residual"], "forces": F.tolist(),
+           "card": smi_line}
+    emit({"blocked_forces": rec})
+    if calc.jk_mode != "blocked":
+        fail(f"blocked_forces: route {calc.jk_mode!r}, expected 'blocked'")
+    if not np.all(np.isfinite(F)) or F.shape != (12, 3):
+        fail(f"blocked_forces: forces not finite or of shape {F.shape}")
+    if not dF <= BLOCKED_FORCE_GATE:
+        fail(f"blocked_forces: {dF:.3e} from the dense forces")
+    if not mirror <= BLOCKED_MIRROR_GATE:
+        fail(f"blocked_forces: mirror gap {mirror:.3e}")
+    if not sumF <= 1e-8:
+        fail(f"blocked_forces: sum of the forces {sumF:.3e}")
+    if launches["ds_jk"] != 0 or not (launches["ds_dens_gga"] > 0
+                                      and launches["ds_vxc_gga"] > 0):
+        fail(f"blocked_forces: kernels inside the gradient: {launches}")
+    return rec
+
+
+def stream_b3lyp(smi_line, dense):
+    """Benzene B3LYP on the streamed route (both limits set to 0): every
+    exact Fock build rebuilds the blocks; the SCF iterates on the autoaux
+    RI fit, then polishes with exact J/K (qccalc._stream_solve), and stops
+    at tol or on stagnation. Gates: the energy against main_path_ks's, K1
+    only in the SAD atoms, K2 and K3 once per Fock build (and K2 once more
+    for the energy), tr(D S)."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    torch.cuda.synchronize()
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with route_limits(dense=0, blocked=0):
+        calc = dq.KS(mol, xc="b3lyp")
+        reset_counts()
+        calc.run()
+    launches = path_counts()
+    torch.cuda.synchronize()
+    st = calc.stats
+    e = float(calc.energy())
+    dm = calc.aodm()
+    trace_ds = float(torch.einsum("ij,ji->", dm, calc._theta["ovlp"]))
+    builds = st["iterations"] + 1
+    want = {"ds_jk": 0, "ds_dens_gga": builds + 1, "ds_vxc_gga": builds,
+            "ds_jk_eri_lr": 0}
+    rec = {"nao": mol.meta.nao, "route": st["jk_mode"], "guess": st["guess"],
+           "energy_ha": e, "energy_dense_ha": dense["energy_ha"],
+           "energy_minus_dense_ha": e - dense["energy_ha"],
+           "anchor_ha": KS_ANCHOR_HA,
+           "energy_minus_anchor_ha": e - KS_ANCHOR_HA,
+           "residual": st["residual"], "tol": calc.opts.tol,
+           "ri_iterations": st["ri_iterations"],
+           "dual_inner_iterations": st["dual_inner_iterations"],
+           "exact_jk": st["exact_jk"], "iterations": st["iterations"],
+           "fock_builds": builds,
+           **{k: st[k] for k in ("int1e_s", "grid_s", "sad_s", "scf_s",
+                                 "energy_s") + EXACT_STATS if k in st},
+           "total_s": time.perf_counter() - t0, "launches": launches,
+           "launches_sad": sad_counts(), "trace_dm_ovlp": trace_ds,
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "card": smi_line}
+    emit({"stream_b3lyp": rec})
+    if rec["route"] != "stream" or calc.jk_mode != "stream":
+        fail(f"stream_b3lyp: route {rec['route']!r}, expected 'stream'")
+    if not abs(e - dense["energy_ha"]) <= STREAM_E_GATE_HA:
+        fail(f"stream_b3lyp: energy {e!r} vs the dense route's "
+             f"{dense['energy_ha']!r}")
+    if launches != want:
+        fail(f"stream_b3lyp: launched {launches} for {builds} Fock builds "
+             f"and the energy, expected {want}")
+    if abs(trace_ds - NELEC) > 1e-8:
+        fail(f"stream_b3lyp: tr(D S) = {trace_ds!r}, expected {NELEC}")
+    return rec
+
+
+def blocked_vitamin_c(smi_line, dense):
+    """Vitamin C/cc-pVDZ B3LYP on the blocked route (the dense limit set to
+    0), against the dense vitamin_c phase of this run: the energy, tr(D S);
+    the block build's seconds beside eri_dense's, the peaks, the
+    allocator's retries and the bra blocks coulomb_contract chose."""
+    mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2)
+    retries = alloc_retries()
+    _AUTO_BLOCKS.clear()
+    with route_limits(dense=0):
+        calc, rec = ks_phase("blocked_vitamin_c", mol, "b3lyp", None,
+                             smi_line, nelec=VITAMIN_C_NELEC)
+    e = rec["energy_ha"]
+    rec.update(alloc_retries=alloc_retries() - retries,
+               auto_blocks=auto_blocks(),
+               energy_dense_ha=dense["energy_ha"],
+               energy_minus_dense_ha=e - dense["energy_ha"],
+               dense_phase_eri_dense_s=dense["eri_dense_s"],
+               dense_phase_peak_device_bytes=dense["peak_device_bytes"],
+               dense_phase_alloc_retries=dense["alloc_retries"],
+               dense_phase_auto_blocks=dense["auto_blocks"],
+               peak_over_blocks=rec["peak_device_bytes"]
+               / rec["jk_blocks_bytes"],
+               parts=route_parts(calc, smi_line))
+    emit({"blocked_vitamin_c": rec})
+    if rec["route"] != "blocked":
+        fail(f"blocked_vitamin_c: route {rec['route']!r}")
+    if abs(e - dense["energy_ha"]) > BLOCKED_E_GATE_HA:
+        fail(f"blocked_vitamin_c: energy {e!r} vs the dense route's "
+             f"{dense['energy_ha']!r}")
+    return rec
+
+
+def blocked_beyond_dense(smi_line, e_benzene, theta_zz, e_df_dimer):
+    """PR 9's benzene dimer without densityfit(): the dense route is not
+    taken, the blocked one is. Its energy is twice main_path_ks's plus the
+    quadrupoles' interaction (Theta_zz of the dense monomer's density);
+    K2 and K3 at nao 228 against their plain versions."""
+    mol = dq.Mol(dimer_desc(), basis="def2-svp", grid=2)
+    e_qq = 6.0 * theta_zz ** 2 / DIMER_SHIFT_BOHR ** 5
+    calc, rec = ks_phase("blocked_beyond_dense", mol, "b3lyp",
+                         2 * e_benzene + e_qq, smi_line, nelec=2 * NELEC,
+                         gate=DIMER_GATE_HA)
+    checks = dimer_kernel_checks(calc)
+    nao = mol.meta.nao
+    rec.update(dense_eri_bytes=8 * nao ** 4,
+               dense_limit_bytes=qccalc.config.DENSE_ERI_BYTES_LIMIT,
+               blocked_limit_bytes=qccalc.config.BLOCKED_JK_BYTES_LIMIT,
+               shift_bohr=DIMER_SHIFT_BOHR, theta_zz=theta_zz,
+               quadrupole_energy_ha=e_qq,
+               energy_minus_twice_dense_ha=rec["energy_ha"] - 2 * e_benzene,
+               energy_minus_df_dimer_ha=rec["energy_ha"] - e_df_dimer,
+               kernel_checks=checks, parts=route_parts(calc, smi_line))
+    emit({"blocked_beyond_dense": rec})
+    if rec["route"] != "blocked":
+        fail(f"blocked_beyond_dense: route {rec['route']!r}, expected "
+             "'blocked'")
+    if nao != 228 or 8 * nao ** 4 <= qccalc.config.DENSE_ERI_BYTES_LIMIT:
+        fail(f"blocked_beyond_dense: nao {nao}, or its ERI fits the dense "
+             "limit")
+    return rec, checks
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -1314,13 +1623,14 @@ def main():
         checks.append(check_kernel(T, torch.as_tensor(dmx, device=DEV),
                                    f"card_like({n}) nonsym dm"))
         del T
-        torch.cuda.empty_cache()
+        free_device()
     emit({"kernel_checks": checks, "gate_rel": GATE_REL})
 
     # 4. the main path: HF on benzene/def2-SVP. Every path's launches are
     # its molecule's own: those of the SAD start's atomic SCFs are counted
     # apart
     qccalc.sad_dm0 = _count_sad(qccalc.sad_dm0)
+    eri._auto_block = _record_auto_block(eri._auto_block)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     mol = dq.Mol(benzene_desc(), basis="def2-svp")
@@ -1445,7 +1755,7 @@ def main():
              "bound_by": "bytes" if bound_bytes_ms >= bound_ops_ms
              else "operations", "max_abs_err": err_abs}
     del calc, theta, eri_k, dm, dmc, X, fock, k_ref, j_ref
-    torch.cuda.empty_cache()
+    free_device()
 
     # 5. K2 and K3 against their plain versions on seeded tables
     xc_checks = []
@@ -1479,7 +1789,7 @@ def main():
         vg = torch.as_tensor(rng.standard_normal((3, ng)), device=DEV)
         xc_checks.append(check_vxc(ao, ag, vr, vg, f"tables({ng},{nao})"))
         del ao, ag
-    torch.cuda.empty_cache()
+    free_device()
     emit({"xc_kernel_checks": xc_checks, "gate_rel": GATE_REL})
 
     # 6. the main path of this slice: RKS-B3LYP on benzene/def2-SVP, grid 2
@@ -1627,44 +1937,64 @@ def main():
                               "launches_per_iteration": ks_per_it,
                               "kernel_ms_per_iteration": per_it}})
     emit({"ks_iteration_profile": ks_profile})
+    # the dense monomer's quadrupole, for the dimer phases
+    theta_zz = quadrupole_zz(calc)
 
-    # 9. the kernels' backward against autograd of their plain versions,
-    # then the forces of the main path by implicit differentiation
+    # 9. the blocked route on the main path's molecule, held against K1 on
+    # this eri_k
+    blocked_rec = blocked_b3lyp(smi_line, main_ks, eri_k)
+    free_device()
+
+    # 10. the kernels' backward against autograd of their plain versions,
+    # then the forces of the main path by implicit differentiation, on the
+    # dense and the blocked route; the streamed route
     kernel_backward_checks(theta["eri_k"])
     del calc, theta, grid, eri_k, ao, ag
-    torch.cuda.empty_cache()
+    free_device()
     force_rec = forces(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
+    blocked_force_rec = blocked_forces(smi_line, force_rec)
+    free_device()
+    stream_rec = stream_b3lyp(smi_line, main_ks)
+    free_device()
 
-    # 10. the breadth of this slice: range separation, a meta-GGA, a neural
-    # functional with its parameter gradient, and nao past 128
+    # 11. the breadth of the dense route: range separation, a meta-GGA, a
+    # neural functional with its parameter gradient, and nao past 128 (then
+    # the same molecule on the blocked route)
     cam_rec, lr_check = cam_b3lyp(smi_line)
     checks.append(lr_check)
-    torch.cuda.empty_cache()
+    free_device()
     mgga_rec = meta_gga(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
     nn_rec = nn_xc(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
     vitc_rec = vitamin_c(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
+    blocked_vitc_rec = blocked_vitamin_c(smi_line, vitc_rec)
+    free_device()
 
-    # 11. density fitting: RI-J/RI-K in place of K1, the long-range fit of
+    # 12. density fitting: RI-J/RI-K in place of K1, the long-range fit of
     # range separation, forces, the reference's vitamin C workload, a
     # molecule past the dense limit, and a polarized case
     df_rec = df_b3lyp(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
     df_cam_rec = df_cam_b3lyp(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
     df_force_rec = df_forces(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
     df_vitc_rec = df_vitamin_c(smi_line, vitc_rec)
-    torch.cuda.empty_cache()
+    free_device()
     dimer_rec, dimer_checks = df_beyond_dense(smi_line, df_rec["energy_ha"],
                                               df_rec["theta_zz"])
     xc_checks += dimer_checks
-    torch.cuda.empty_cache()
+    free_device()
     o2_rec = df_uks_o2(smi_line)
-    torch.cuda.empty_cache()
+    free_device()
+    # 13. the dimer without densityfit(): the blocked route
+    bbd_rec, bbd_checks = blocked_beyond_dense(
+        smi_line, main_ks["energy_ha"], theta_zz, dimer_rec["energy_ha"])
+    xc_checks += bbd_checks
+    free_device()
     by_path = {"main_path_hf": hf_launches, "main_path_ks": ks_launches,
                "forces_gradient": force_rec["launches_in_gradient"],
                "cam_b3lyp": cam_rec["launches"],
@@ -1676,7 +2006,13 @@ def main():
                "df_forces_gradient": df_force_rec["launches_in_gradient"],
                "df_vitamin_c": df_vitc_rec["launches"],
                "df_beyond_dense": dimer_rec["launches"],
-               "df_uks_o2": o2_rec["launches"]}
+               "df_uks_o2": o2_rec["launches"],
+               "blocked_b3lyp": blocked_rec["launches"],
+               "blocked_forces_gradient":
+                   blocked_force_rec["launches_in_gradient"],
+               "stream_b3lyp": stream_rec["launches"],
+               "blocked_vitamin_c": blocked_vitc_rec["launches"],
+               "blocked_beyond_dense": bbd_rec["launches"]}
 
     sad_by_path = {"main_path_hf": hf_sad, "main_path_ks": ks_sad,
                    "cam_b3lyp": cam_rec["launches_sad"],
@@ -1687,12 +2023,16 @@ def main():
                    "df_cam_b3lyp": df_cam_rec["launches_sad"],
                    "df_vitamin_c": df_vitc_rec["launches_sad"],
                    "df_beyond_dense": dimer_rec["launches_sad"],
-                   "df_uks_o2": o2_rec["launches_sad"]}
+                   "df_uks_o2": o2_rec["launches_sad"],
+                   "blocked_b3lyp": blocked_rec["launches_sad"],
+                   "stream_b3lyp": stream_rec["launches_sad"],
+                   "blocked_vitamin_c": blocked_vitc_rec["launches_sad"],
+                   "blocked_beyond_dense": bbd_rec["launches_sad"]}
 
     def launches_of(name, paths=by_path):
         return {path: c.get(name, 0) for path, c in paths.items()}
 
-    # 12. a small molecule against its published energy
+    # 14. a small molecule against its published energy
     qc = dq.HF(dq.Mol("H -0.5 0 0; H 0.5 0 0", basis="3-21G")).run()
     e_h2 = float(qc.energy())
     emit({"small": {"system": "H2", "basis": "3-21G", "energy_ha": e_h2,

@@ -6,7 +6,7 @@ occupation weights) is the only state.
 
 State convention: restricted -> dm (nao, nao); polarized -> dm (2, nao, nao).
 
-Two routes for J and K, chosen by what theta carries:
+Four routes for J and K, chosen by what theta carries:
   - dense: the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl)); J
     and K of every Fock build come from one pass of the fused kernel
     (ops/hopper_jk.py) over it, once per spin. A range-separated hybrid
@@ -17,8 +17,15 @@ Two routes for J and K, chosen by what theta carries:
     plain torch products, as they are XLA einsums in the JAX package, and
     the long-range K of each omega comes from its attenuated-metric fit
     theta['df_lr{i}'].
-The periodic, blocked and streamed branches of the JAX engine are not
-ported yet.
+  - blocked: the weighted canonical quartet blocks theta['jkb0'],
+    theta['jkb1'], ... (scf/jk.py), contracted with the density on every
+    Fock build, J and both spins' K in one pass over them.
+  - streamed: the pair groups' Hermite factors theta['jk_facs']; every
+    Fock build rebuilds each block, contracts it and drops it.
+The blocked and streamed routes need the engine's jk_info (the BasisMeta
+and scf/jk.build_jk_meta's groups) and have no long-range exchange; a
+functional without exact exchange builds J only there, as on the DF route.
+The periodic branches of the JAX engine are not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +35,7 @@ from ..ops.hopper_jk import ds_jk, ds_jk_kplanes
 from ..xc.integrate import exc_energy, vxc_matrix
 from .df import df_j, df_k
 from .eigh import eigh_density
+from .jk import jk_from_blocks, jk_matrices, theta_blocks, theta_factors
 from .orth import LARGE
 
 
@@ -49,18 +57,36 @@ def orthogonal_fock_to_dm(fock, X, keep, occ):
 class HFEngine:
     """Restricted/unrestricted Hartree-Fock.
 
-    theta keys: hcore (nao,nao), eri_k (nao,)*4 or df, ovlp, X, keep, occ,
-    enuc."""
+    theta keys: hcore (nao,nao), eri_k (nao,)*4, df, jkb{i} or jk_facs,
+    ovlp, X, keep, occ, enuc. jk_info: (BasisMeta, jk_meta) of the blocked
+    and streamed routes."""
 
-    def __init__(self, polarized: bool = False):
+    def __init__(self, polarized: bool = False, jk_info=None):
         self.polarized = polarized
+        self.jk_info = jk_info
 
     def dm_tot(self, dm):
         return dm.sum(dim=0) if self.polarized else dm
 
+    @staticmethod
+    def _exact(theta):
+        """Whether theta is on the blocked or the streamed route."""
+        return "jkb0" in theta or "jk_facs" in theta
+
+    def _exact_jk(self, theta, dm, want_j, want_k):
+        """(J, K) from the cached blocks or the streamed factors."""
+        bmeta, jkm = self.jk_info
+        if "jkb0" in theta:
+            return jk_from_blocks(bmeta, jkm, theta_blocks(theta, jkm), dm,
+                                  want_j=want_j, want_k=want_k)
+        return jk_matrices(bmeta, jkm, theta_factors(theta, jkm), dm,
+                           want_j=want_j, want_k=want_k)
+
     def _j(self, theta, dm_tot):
         if "df" in theta:
             return df_j(theta["df"], dm_tot)
+        if self._exact(theta):
+            return self._exact_jk(theta, dm_tot, True, False)[0]
         return ds_jk_kplanes(theta["eri_k"], dm_tot.contiguous())[0]
 
     def _k(self, theta, dm):
@@ -73,9 +99,12 @@ class HFEngine:
     def jk_parts(self, dm, theta):
         """(J of the total density, K per spin): on the dense route from the
         fused kernel, one pass over eri_k per spin; on the DF route RI-J
-        and RI-K."""
+        and RI-K; on the blocked and streamed routes from one pass over the
+        blocks."""
         if "df" in theta:
             return self._j(theta, self.dm_tot(dm)), self._k(theta, dm)
+        if self._exact(theta):
+            return self._exact_jk(theta, dm, True, True)
         eri_k = theta["eri_k"]
         if self.polarized:
             ju, ku = ds_jk_kplanes(eri_k, dm[0].contiguous())
@@ -132,22 +161,24 @@ class KSEngine(HFEngine):
     exchange layout of eri_k (dense route) or its attenuated-metric fit
     df_lr{i} (DF route); the XC object is held on the engine.
     On the dense route K comes with J from the one pass of K1 even when the
-    functional has no exact exchange; on the DF route jk_parts skips RI-K
-    (k = None) when xc.exx_fraction is 0, as the JAX package does. V_xc and
+    functional has no exact exchange; on the DF, blocked and streamed
+    routes jk_parts computes no K (k = None) when xc.exx_fraction is 0, as
+    the JAX package does. V_xc and
     E_xc come from xc/integrate, which takes the kernels K2/K3 for rho and
     grad rho on the card. The long-range K of each omega is one K1 pass
     per spin on eri_lr_k{i}, or RI-K on df_lr{i} (lr_parts);
     fock_from_parts and energy_from_parts compute it unless the caller
     passes it (klr=, as exc= for the XC energy)."""
 
-    def __init__(self, xc, polarized: bool = False):
-        super().__init__(polarized)
+    def __init__(self, xc, polarized: bool = False, jk_info=None):
+        super().__init__(polarized, jk_info=jk_info)
         self.xc = xc
 
     def jk_parts(self, dm, theta):
-        """HFEngine's, except that the DF route computes no RI-K for a
-        functional without exact exchange (k = None)."""
-        if "df" in theta and self.xc.exx_fraction == 0.0:
+        """HFEngine's, except that the DF, blocked and streamed routes
+        compute no K for a functional without exact exchange (k = None)."""
+        if self.xc.exx_fraction == 0.0 and ("df" in theta
+                                            or self._exact(theta)):
             return self._j(theta, self.dm_tot(dm)), None
         return super().jk_parts(dm, theta)
 

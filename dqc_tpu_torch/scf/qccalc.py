@@ -14,20 +14,30 @@ float64 with the meaning of the small-system solver:
   f0 -> diis_solve(step_and_err) -> dm_from_fock(f_star) -> energy.
 A molecule without densityfit() takes the dense route (eri_dense in the
 exchange layout eri_k; a range-separated hybrid adds one erf-attenuated ERI
-per distinct omega in the same layout); one with it takes the density-fitted
-route (scf/df.build_df_theta in the molecule's aux basis, and one
-attenuated-metric fit per omega), which builds no nao^4 tensor. KS adds the
-grid tables. Above GUESS_NAO the SCF starts from the superposition of
-atomic densities (sad_dm0), as in the JAX package; the atoms run dense.
+per distinct omega in the same layout) while its tensors fit
+config.DENSE_ERI_BYTES_LIMIT; past it the blocked route (the canonical
+quartet blocks of scf/jk.py cached in theta) while they fit
+config.BLOCKED_JK_BYTES_LIMIT, and past that the streamed route
+(integral-direct: the blocks rebuilt on every Fock build). One with
+densityfit() takes the density-fitted route (scf/df.build_df_theta in the
+molecule's aux basis, and one attenuated-metric fit per omega), which builds
+no nao^4 tensor. KS adds the grid tables. The streamed route's SCF iterates
+on an RI fit in the autoaux basis first, then polishes with exact J/K at RI
+cost (_stream_solve), as the JAX package's host-driven solver does. Above
+GUESS_NAO the SCF starts from the superposition of atomic densities
+(sad_dm0), as in the JAX package; each atom takes the route its size
+gives it.
 Periodic systems and the variational mode are not ported yet.
 
 Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
 params in the autograd graph (one-electron integrals, the in-graph
-orthogonaliser X of safe_eigh, eri_dense and its eri_k layout, the grid
-points, Becke weights and AO tables, which move with the atoms), and the
-converged dm is `implicit_fixed_point(engine.step, ...)` of it (the DF fits
-are rebuilt there too, their aux centres tied to the atoms), started from
-the dm of run(). The JAX package's split-module adjoint (scf/adjoint.py),
+orthogonaliser X of safe_eigh, eri_dense and its eri_k layout, the
+blocks or the streamed route's Hermite factors, the grid points, Becke
+weights and AO tables, which move with the atoms), and the converged dm is
+`implicit_fixed_point(engine.step, ...)` of it (the DF fits are rebuilt
+there too, their aux centres tied to the atoms; the streamed route's RI fit
+only steers its solver and is built without a graph), started from the dm
+of run(). The JAX package's split-module adjoint (scf/adjoint.py),
 made for a remote TPU compiler, has no counterpart: one backward through
 that graph is the same gradient.
 """
@@ -39,6 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..basis.autoaux import autoaux
 from ..ops.eri import eri_dense, screened_pair_classes
 from ..ops.shellstruct import nsph, pack_basis
 from ..utils.config import config
@@ -51,6 +62,8 @@ from .df import build_df_theta
 from .engine import HFEngine, KSEngine
 from .fixed_point import SCFOptions, diis_solve, implicit_fixed_point
 from .hamilton import build_core_theta
+from .jk import (build_jk_blocks, build_jk_factors, build_jk_meta,
+                 factors_to_theta, jk_blocks_nbytes, jk_combos)
 
 # at and above this nao the SCF starts from the Fock matrix of the SAD
 # density (guess="sad", the default) or the GWH Fock (guess="gwh"); below it
@@ -86,14 +99,18 @@ def gwh_fock(theta, polarized: bool):
 class SCF_QCCalc:
     """Shared SCF calculation; engine supplied by the HF front end."""
 
-    def __init__(self, mol, engine, *, build_theta, opts: SCFOptions):
+    def __init__(self, mol, engine, *, build_theta, opts: SCFOptions,
+                 jk_mode: str = "dense"):
         self.mol = mol
         self.engine = engine
+        # the J/K route _route chose: dense, df, blocked or stream
+        self.jk_mode = jk_mode
         self._build_theta = build_theta   # params -> theta dict
         self.opts = opts
         self._dm = None
         self._energy = None
         self._theta = None
+        self._last_jk = None
         self._has_run = False
         # filled by run(): iterations, best residual, residual history,
         # seconds per stage, Fock builds
@@ -167,22 +184,100 @@ class SCF_QCCalc:
         if opts.method != "diis":
             raise NotImplementedError(
                 f"not ported yet: SCF method {opts.method!r} (ROADMAP A13)")
-
-        def step_and_err(fock):
-            dm = eng.dm_from_fock(fock, theta)
-            f_new = eng.fock(dm, theta)
-            err = eng.diis_err(f_new, dm, theta)
-            return f_new, err
-
+        if "jk_facs" in theta:
+            return self._stream_solve(theta, dm0)
         f0 = self._start_fock(theta) if dm0 is None else eng.fock(dm0, theta)
         # final answer: the pair-consistent INPUT Fock — dm_from_fock of it
         # reproduces the density whose residual is best_err
-        f_star, _, n_iter, best_err, errh = diis_solve(step_and_err, f0, opts)
+        f_star, _, n_iter, best_err, errh = diis_solve(
+            self._step_and_err(theta), f0, opts)
         if best_err > opts.tol:
             log(f"DIIS exited above tol (residual {best_err:.3e})", level=0)
         self.stats.update(iterations=n_iter, residual=best_err,
                           residual_history=errh)
         return eng.dm_from_fock(f_star, theta)
+
+    def _step_and_err(self, theta, corr=None):
+        """fock -> (F(dm(fock)), DIIS error) on theta; `corr` = (dJ, dK) is
+        added to J and K (the frozen exact-minus-RI correction of the
+        dual-level phase)."""
+        eng = self.engine
+
+        def step_and_err(fock):
+            dm = eng.dm_from_fock(fock, theta)
+            j, k = eng.jk_parts(dm, theta)
+            if corr is not None:
+                j = j + corr[0]
+                k = None if k is None else k + corr[1]
+            f_new = eng.fock_from_parts(dm, j, k, theta)
+            return f_new, eng.diis_err(f_new, dm, theta)
+        return step_and_err
+
+    def _stream_solve(self, theta, dm0=None):
+        """SCF of the streamed route, the JAX package's f64 RI phase and
+        dual-level polish (dqc_tpu/scf/qccalc.py:674-686, :704-761): DIIS on
+        the RI fit theta['warm_df'] (tol max(tol, 1e-6), 25 iterations,
+        patience 4) from the start Fock of that fit (the JAX package's
+        takes one exact build for it); then outer cycles,
+        each one exact streamed J/K build at the current density, its
+        residual measured, and an inner DIIS on the RI map plus the frozen
+        correction (exact - RI at that density; tol max(tol/10, 1e-13), 20
+        iterations, patience 4). It stops at tol, or when an exact residual
+        is above 0.25 times the best one (stagnation), after at most 8
+        outer cycles, and returns the best exact iterate's dm; its exact
+        J/K are kept for run()'s energy (_last_jk). stats: ri_iterations,
+        dual_inner_iterations, exact_jk ({'builds', 'seconds',
+        'residuals'}), iterations (all Fock builds), residual (the best
+        exact one)."""
+        eng, opts = self.engine, self.opts
+        theta_ri = {k: v for k, v in theta.items() if k != "jk_facs"}
+        theta_ri["df"] = theta["warm_df"]
+        f = (self._start_fock(theta_ri) if dm0 is None
+             else eng.fock(dm0, theta_ri))
+        ri_opts = opts._replace(tol=max(opts.tol, 1e-6), maxiter=25,
+                                diis_patience=4)
+        f, _, n_ri, _, errh = diis_solve(self._step_and_err(theta_ri), f,
+                                         ri_opts)
+        inner_opts = opts._replace(tol=max(opts.tol * 0.1, 1e-13),
+                                   maxiter=20, diis_patience=4)
+        best = (float("inf"), None, None, None)
+        exact = {"builds": 0, "seconds": [], "residuals": []}
+        inner = []
+        for _ in range(8):
+            dm = eng.dm_from_fock(f, theta)
+            t0 = time.perf_counter()
+            j_ex, k_ex = eng.jk_parts(dm, theta)
+            self._sync()
+            exact["builds"] += 1
+            exact["seconds"].append(time.perf_counter() - t0)
+            f_new = eng.fock_from_parts(dm, j_ex, k_ex, theta)
+            err = float(torch.max(torch.abs(eng.diis_err(f_new, dm, theta))))
+            exact["residuals"].append(err)
+            if not err == err or err == float("inf"):
+                log("stream SCF: non-finite exact residual; returning the "
+                    "best outer iterate", level=0)
+                if best[1] is None:
+                    best = (err, dm, j_ex, k_ex)
+                break
+            stalled = err > 0.25 * best[0]
+            if err < best[0]:
+                best = (err, dm, j_ex, k_ex)
+            if err < opts.tol or stalled:
+                break
+            j_ri, k_ri = eng.jk_parts(dm, theta_ri)
+            corr = (j_ex - j_ri, None if k_ex is None else k_ex - k_ri)
+            f, _, n_in, _, _ = diis_solve(
+                self._step_and_err(theta_ri, corr), f_new, inner_opts)
+            inner.append(n_in)
+        err, dm, j_ex, k_ex = best
+        if err > opts.tol:
+            log(f"stream SCF exited above tol (residual {err:.3e})", level=0)
+        self._last_jk = (dm, j_ex, k_ex)
+        self.stats.update(iterations=n_ri + sum(inner) + exact["builds"],
+                          residual=err, residual_history=errh,
+                          ri_iterations=n_ri, dual_inner_iterations=inner,
+                          exact_jk=exact)
+        return dm
 
     def _sync(self):
         if self.mol.device.type == "cuda":
@@ -198,10 +293,17 @@ class SCF_QCCalc:
                                           stats=self.stats)
             self._sync()
             t1 = time.perf_counter()
+            self._last_jk = None
             self._dm = self._solver(theta)
             self._sync()
             t2 = time.perf_counter()
-            self._energy = self.engine.energy(self._dm, theta)
+            last = self._last_jk
+            if last is not None and last[0] is self._dm:
+                # the streamed route's exact J/K at this dm are in hand
+                self._energy = self.engine.energy_from_parts(
+                    self._dm, last[1], last[2], theta)
+            else:
+                self._energy = self.engine.energy(self._dm, theta)
             self._sync()
             self.stats.update(theta_s=t1 - t0, scf_s=t2 - t1,
                               energy_s=time.perf_counter() - t2)
@@ -341,11 +443,16 @@ def _floats(tree):
     return []
 
 
-def _route(mol, variational, opts, what, n_eri: int = 1):
-    """Refuse what the port does not cover yet. Without densityfit(), n_eri
-    dense nao^4 tensors (eri_k and the attenuated ones of a
-    range-separated hybrid) count against config.DENSE_ERI_BYTES_LIMIT
-    together; the DF route builds none and has no such limit."""
+def _route(mol, variational, opts, what, n_lr: int = 0):
+    """(mode, jk_info) of a molecule: 'df' with densityfit(); else 'dense'
+    while its 1 + n_lr dense nao^4 tensors (eri_k and the attenuated ones of
+    a range-separated hybrid) fit config.DENSE_ERI_BYTES_LIMIT together;
+    else 'blocked' while the canonical quartet blocks of the Schwarz-screened
+    pair groups fit config.BLOCKED_JK_BYTES_LIMIT, and 'stream' past it.
+    jk_info = (BasisMeta, scf/jk.build_jk_meta groups) on the last two.
+    Raises for what the port does not cover yet, and for a range-separated
+    hybrid past the dense limit, which the blocked and streamed routes do
+    not serve (as in the JAX package, dqc_tpu/scf/qccalc.py:1795-1799)."""
     if hasattr(mol, "lattice"):
         raise NotImplementedError(
             f"not ported yet: periodic {what} (ROADMAP A14)")
@@ -355,20 +462,23 @@ def _route(mol, variational, opts, what, n_eri: int = 1):
     if opts is not None and opts.guess not in ("sad", "gwh"):
         raise ValueError(f"unknown initial guess {opts.guess!r}")
     if mol.dfinfo is not None:
-        return
+        return "df", None
     nao = mol.meta.nao
     limit = config.DENSE_ERI_BYTES_LIMIT
-    need = n_eri * nao ** 4 * 8
-    if need > limit:
-        what_needs = (f"nao = {nao} needs {need} bytes of dense ERI"
-                      if n_eri == 1 else
-                      f"range-separated exchange at nao = {nao} needs "
-                      f"{n_eri} dense ERI tensors ({need} bytes)")
+    need = (1 + n_lr) * nao ** 4 * 8
+    if need <= limit:
+        return "dense", None
+    if n_lr:
         raise NotImplementedError(
-            f"{what_needs}, above the {limit}-byte limit of the dense route; "
-            "call mol.densityfit() for the density-fitted route (ROADMAP "
-            "A11), or wait for the exact blocked/streamed J/K route, not "
-            "ported yet (ROADMAP A12)")
+            f"range-separated exchange at nao = {nao} needs {1 + n_lr} dense "
+            f"ERI tensors ({need} bytes), above the {limit}-byte limit of "
+            "the dense route, and the blocked and streamed routes have no "
+            "long-range exchange; call mol.densityfit() for the "
+            "density-fitted route")
+    jkm = build_jk_meta(mol.meta, _screened(mol))
+    mode = ("blocked" if jk_blocks_nbytes(jkm) <= config.BLOCKED_JK_BYTES_LIMIT
+            else "stream")
+    return mode, (mol.meta, jkm)
 
 
 def _df_setup(mol):
@@ -377,6 +487,12 @@ def _df_setup(mol):
     if mol.dfinfo is None:
         return None
     return pack_basis(mol.dfinfo.auxbases, device=mol.device)
+
+
+def _warm_df_setup(mol):
+    """(meta_aux, params_aux) of the autoaux basis whose RI fit steers the
+    streamed route's SCF (the JAX package's _warm_df_setup)."""
+    return pack_basis(autoaux(mol.atombases), device=mol.device)
 
 
 def _df_fit(mol, params, dfset, omega=None):
@@ -389,15 +505,21 @@ def _df_fit(mol, params, dfset, omega=None):
 
 
 def _make_theta(mol, params, occ, stats, grid=None, family=None,
-                 omegas=(), dfset=None):
-    """theta of either route: one-electron integrals and occupations; eri_k
-    (dense) or the fit df (DF); for KS the grid tables and the xc_params;
-    and per omega an erf-attenuated eri_lr_k{i} (dense) or its fit df_lr{i}
-    (DF). Each nao^4 tensor is built, laid out and its J-layout
-    intermediate freed before the next build starts. Stage seconds go into
-    `stats`: int1e_s; eri_s and eri_lr_s (dense); df_s with its split
-    coul2c_s, coul3c_s, factor_s, naux and metric_ratio, and df_lr_s with
-    the per-omega records df_lr (DF); grid_s."""
+                 omegas=(), dfset=None, mode="dense", jk_info=None,
+                 warm=None):
+    """theta of a route (`mode`, from _route): one-electron integrals and
+    occupations; eri_k (dense), the fit df (DF), the weighted canonical
+    blocks jkb0, jkb1, ... of scf/jk.py (blocked), or the pair groups'
+    Hermite factors jk_facs and the RI fit warm_df in the autoaux basis
+    `warm`, built without a graph (stream); for KS the grid tables and the
+    xc_params; and per omega an erf-attenuated eri_lr_k{i} (dense) or its
+    fit df_lr{i} (DF). Each nao^4 tensor is built, laid out and its
+    J-layout intermediate freed before the next build starts. `stats` gets
+    jk_mode and the stage seconds: int1e_s; eri_s and eri_lr_s (dense);
+    df_s with its split coul2c_s, coul3c_s, factor_s, naux and
+    metric_ratio, and df_lr_s with the per-omega records df_lr (DF);
+    jk_blocks_s (blocked) or jk_facs_s, warm_df_s and warm_naux (stream),
+    with jk_blocks_bytes and jk_combos (both); grid_s."""
     dev = mol.device
 
     def sync():
@@ -417,16 +539,38 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
                              with_eri=False)
     sync()
     t1 = time.perf_counter()
-    times = {"int1e_s": t1 - t0}
-    if dfset is None:
+    times = {"int1e_s": t1 - t0, "jk_mode": mode}
+    if mode == "dense":
         scr = _screened(mol)
         theta["eri_k"] = exchange_layout()
         sync()
         times["eri_s"] = time.perf_counter() - t1
-    else:
+    elif mode == "df":
         theta["df"], info = _df_fit(mol, params, dfset)
         times["df_s"] = time.perf_counter() - t1
         times.update(info)
+    else:
+        bmeta, jkm = jk_info
+        times.update(jk_blocks_bytes=jk_blocks_nbytes(jkm),
+                     jk_combos=len(jk_combos(jkm)))
+        if mode == "blocked":
+            for ci, blk in enumerate(build_jk_blocks(bmeta, params["basis"],
+                                                     jkm)):
+                theta[f"jkb{ci}"] = blk
+            sync()
+            times["jk_blocks_s"] = time.perf_counter() - t1
+        else:
+            theta["jk_facs"] = factors_to_theta(
+                build_jk_factors(bmeta, params["basis"], jkm))
+            sync()
+            t2 = time.perf_counter()
+            times["jk_facs_s"] = t2 - t1
+            # the fit only steers the solver (_stream_solve): no graph
+            with torch.no_grad():
+                theta["warm_df"], info = _df_fit(mol, params, warm)
+            sync()
+            times.update(warm_df_s=time.perf_counter() - t2,
+                         warm_naux=info["naux"])
     theta["occ"] = occ
     if grid is not None:
         t2 = time.perf_counter()
@@ -439,7 +583,7 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
         t3 = time.perf_counter()
         lr_info = []
         for i, w in enumerate(omegas):
-            if dfset is None:
+            if mode == "dense":
                 t = exchange_layout(omega=w)
                 # K1 counts its launches on these tensors under this tag
                 t.jk_tag = "eri_lr"
@@ -449,7 +593,7 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
                                                    omega=w)
                 lr_info.append(dict(info, omega=w))
         sync()
-        if dfset is None:
+        if mode == "dense":
             times["eri_lr_s"] = time.perf_counter() - t3
         else:
             times["df_lr_s"] = time.perf_counter() - t3
@@ -465,24 +609,29 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
        opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
     """Hartree-Fock front end.
 
-    A molecule without densityfit() takes the dense route: eri =
-    eri_dense(...) and theta carries its exchange layout eri_k =
-    eri.permute(0,2,1,3), the tensor the JAX package reaches through its
-    blocked route at benzene size (its byte limits are sized for a 16 GB
-    chip); above config.DENSE_ERI_BYTES_LIMIT it raises, naming
-    densityfit() and the blocked/streamed route (ROADMAP A12). A molecule
-    with densityfit() takes the DF route: RI-J and RI-K from the fit of
-    scf/df.py, no nao^4 tensor, no size limit."""
-    _route(mol, variational, opts, "Hartree-Fock")
+    A molecule without densityfit() takes the dense route while its ERI
+    fits config.DENSE_ERI_BYTES_LIMIT: eri = eri_dense(...) and theta
+    carries its exchange layout eri_k = eri.permute(0,2,1,3), the tensor the
+    JAX package reaches through its blocked route at benzene size (its byte
+    limits are sized for a 16 GB chip). Past that limit it takes the
+    blocked route (the canonical quartet blocks cached in theta) while they
+    fit config.BLOCKED_JK_BYTES_LIMIT, and the streamed route past that
+    (_route, scf/jk.py). A molecule with densityfit() takes the DF route:
+    RI-J and RI-K from the fit of scf/df.py, no nao^4 tensor, no size
+    limit."""
+    mode, jk_info = _route(mol, variational, opts, "Hartree-Fock")
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     dfset = _df_setup(mol)
+    warm = _warm_df_setup(mol) if mode == "stream" else None
 
     def build_theta(params, stats=None):
-        return _make_theta(mol, params, occ, stats, dfset=dfset)
+        return _make_theta(mol, params, occ, stats, dfset=dfset, mode=mode,
+                           jk_info=jk_info, warm=warm)
 
-    return SCF_QCCalc(mol, HFEngine(polarized=polarized),
-                      build_theta=build_theta, opts=opts or SCFOptions())
+    return SCF_QCCalc(mol, HFEngine(polarized=polarized, jk_info=jk_info),
+                      build_theta=build_theta, opts=opts or SCFOptions(),
+                      jk_mode=mode)
 
 
 def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
@@ -491,28 +640,37 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
     """Kohn-Sham front end: LDA, GGA and meta-GGA functionals, hybrids
     (B3LYP, PBE0, TPSSh, ...), range-separated hybrids (CAM-B3LYP, LC-BLYP,
     lr_hf(omega) expressions) and CustomXC functionals, restricted or
-    polarized, on HF's route (dense, or density-fitted after
-    mol.densityfit()) plus the grid tables of mol.setup_grid(). On the card
-    every Fock build of the dense route runs K1 for J and K (and once more
-    per omega for the long-range K); the DF route computes RI-J, RI-K when
-    the functional has exact exchange, and RI-K on each omega's
-    attenuated-metric fit. Both run K2/K3 for the density and V_xc of a GGA
-    or meta-GGA. A CustomXC's parameters are differentiable inputs:
+    polarized, on HF's routes (dense, blocked, streamed, or density-fitted
+    after mol.densityfit()) plus the grid tables of mol.setup_grid(). On the
+    card every Fock build of the dense route runs K1 for J and K (and once
+    more per omega for the long-range K); the blocked and streamed routes
+    contract the quartet blocks (J only for a functional without exact
+    exchange) and launch K1 only in the atoms of the SAD start; the DF
+    route computes RI-J, RI-K when the functional has exact exchange, and
+    RI-K on each omega's attenuated-metric fit. A range-separated hybrid
+    whose dense tensors do not fit the dense limit raises, naming
+    mol.densityfit(). Every route runs K2/K3 for the density and V_xc of a
+    GGA or meta-GGA. A CustomXC's parameters are differentiable inputs:
     energy_grad()['xc_params']."""
     xc = get_xc(xc)
-    _route(mol, variational, opts, "Kohn-Sham", n_eri=1 + len(xc.exx_lr))
+    mode, jk_info = _route(mol, variational, opts, "Kohn-Sham",
+                           n_lr=len(xc.exx_lr))
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     grid = mol.setup_grid()
     omegas = tuple(w for _, w in xc.exx_lr)
     dfset = _df_setup(mol)
+    warm = _warm_df_setup(mol) if mode == "stream" else None
 
     def build_theta(params, stats=None):
         return _make_theta(mol, params, occ, stats, grid=grid,
-                            family=xc.family, omegas=omegas, dfset=dfset)
+                           family=xc.family, omegas=omegas, dfset=dfset,
+                           mode=mode, jk_info=jk_info, warm=warm)
 
-    calc = SCF_QCCalc(mol, KSEngine(xc, polarized=polarized),
-                      build_theta=build_theta, opts=opts or SCFOptions())
+    calc = SCF_QCCalc(mol, KSEngine(xc, polarized=polarized,
+                                    jk_info=jk_info),
+                      build_theta=build_theta, opts=opts or SCFOptions(),
+                      jk_mode=mode)
     # the NN parameters of a CustomXC are differentiable inputs
     if isinstance(xc, CustomXC):
         calc._xc_params = {xc.key: xc.init_params}

@@ -20,13 +20,23 @@ class _Config:
     # peak of eri_dense is several times larger: on an H100, benzene/def2-SVP,
     # 512 MiB here gave a 7.6 GiB peak and the same build time as 1 GiB
     ERI_R_BYTES: int = 512 * 1024 ** 2
-    # a dense nao^4 f64 ERI tensor above this many bytes is refused (80 GB
-    # card). Measured peak of a B3LYP SCF on an H100: 2.81x the tensor at
-    # nao = 208 (42.0 GB for 15.0 GB: the symmetrisation and the exchange
-    # layout each hold two tensors), 6.4x at nao = 114 (8.7 GB), where the
-    # build's fixed-size temporaries weigh more; range separation adds one
-    # tensor per omega (KS counts them against this limit together)
+    # the dense route (eri_k and K1) is taken while its nao^4 f64 ERI
+    # tensors fit in this many bytes (80 GB card); above it the blocked or
+    # the streamed route. Measured peak of a B3LYP SCF on an H100: 2.81x
+    # the tensor at nao = 208 (42.0 GB for 15.0 GB: the symmetrisation and
+    # the exchange layout each hold two tensors), 6.4x at nao = 114 (8.7
+    # GB), where the build's fixed-size temporaries weigh more; range
+    # separation adds one tensor per omega (KS counts them against this
+    # limit together)
     DENSE_ERI_BYTES_LIMIT: int = 16 * 1024 ** 3
+    # past the dense limit, the blocked route caches the canonical quartet
+    # blocks (scf/jk.py) while they fit in this many bytes; above it the
+    # streamed route rebuilds them on every Fock build. Measured peak of a
+    # blocked B3LYP SCF on an H100: 8.7x and 12.8x the blocks at nao = 208
+    # in two runs (18.6 and 27.4 GB for 2.14 GB: the quartet build's
+    # temporaries and the grid tables come on top), so 4 GiB of blocks
+    # stays under the 80 GB card even at the larger ratio
+    BLOCKED_JK_BYTES_LIMIT: int = 4 * 1024 ** 3
     # verbosity: 0 silent, 1 progress lines, 2 debug
     VERBOSE: int = 0    # overridden by env DQC_TPU_VERBOSE at import
 

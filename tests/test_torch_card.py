@@ -419,3 +419,30 @@ def test_df_b3lyp_on_the_card_launches_k2_k3_and_no_k1():
     cpu = dqt.KS(dqt.Mol(H2O, basis="def2-svp", grid=1,
                          device="cpu").densityfit(), xc="b3lyp").run()
     assert abs(float(qc.energy()) - float(cpu.energy())) < 1e-10
+
+
+def test_blocked_b3lyp_on_the_card_launches_k2_k3_and_no_k1(monkeypatch):
+    """H2O/def2-SVP B3LYP on the blocked route (the dense limit set to 0,
+    grid 1): K2 and K3 once per Fock build (and K2 once more for the
+    energy), K1 never (H2O is below the SAD size); the same blocks and dm
+    contracted twice give the same bits; the energy equals the dense route's
+    on the card to 1e-10 Ha."""
+    _need_card()
+    from dqc_tpu_torch.scf import qccalc
+    mol = dqt.Mol(H2O, basis="def2-svp", grid=1)
+    dense = dqt.KS(mol, xc="b3lyp").run()
+    monkeypatch.setattr(qccalc.config, "DENSE_ERI_BYTES_LIMIT", 0)
+    hopper_jk.ds_jk.launches = 0
+    hopper_xc.ds_dens_gga.launches = hopper_xc.ds_vxc_gga.launches = 0
+    qc = dqt.KS(mol, xc="b3lyp").run()
+    builds = qc.stats["iterations"] + 1
+    assert qc.jk_mode == "blocked" and "jkb0" in qc._theta
+    assert hopper_jk.ds_jk.launches == 0
+    assert hopper_xc.ds_dens_gga.launches == builds + 1
+    assert hopper_xc.ds_vxc_gga.launches == builds
+    dm = qc.aodm().contiguous()
+    with torch.no_grad():
+        j1, k1 = qc.engine.jk_parts(dm, qc._theta)
+        j2, k2 = qc.engine.jk_parts(dm, qc._theta)
+    assert torch.equal(j1, j2) and torch.equal(k1, k2)
+    assert abs(float(qc.energy()) - float(dense.energy())) < 1e-10

@@ -392,15 +392,16 @@ def test_ill_conditioned_metric_raises():
 
 def test_densityfit_route_theta_and_stats(monkeypatch):
     """A DF molecule builds no eri_k and passes the dense size limit; a pure
-    functional computes no RI-K; the dense refusal names densityfit()."""
+    functional computes no RI-K. Past the dense limit the molecule without
+    densityfit() takes the blocked route."""
     mol = dqt.Mol(H2O, basis="sto-3g", grid=1, device="cpu")
     with pytest.raises(NotImplementedError, match="only 'coulomb'"):
         mol.densityfit(method="exchange")
     assert mol.dfinfo is None
     monkeypatch.setattr(tqc.config, "DENSE_ERI_BYTES_LIMIT", 100)
-    with pytest.raises(NotImplementedError, match=r"densityfit\(\).*A12"):
-        dqt.KS(mol, xc="pbe")
+    assert dqt.KS(mol, xc="pbe").jk_mode == "blocked"
     mol.densityfit()
+    assert dqt.KS(mol, xc="pbe").jk_mode == "df"
     qc = dqt.KS(mol, xc="camb3lyp")
     stats = {}
     th = qc._build_theta(qc._all_params(), stats=stats)

@@ -146,9 +146,11 @@ def test_ks_of_an_lda_matches_jax_functional_energy():
 def test_ks_takes_meta_ggas_and_range_separation_on_the_dense_route(
         monkeypatch):
     """Meta-GGAs and range-separated hybrids build their theta (the grid's
-    ao_lapl, one attenuated eri_lr_k per omega); the variational mode, a
-    dense ERI above the limit, and range separation whose tensors do not
-    fit the dense route together still raise, naming their items."""
+    ao_lapl, one attenuated eri_lr_k per omega); the variational mode and
+    the long-range K without its tensor raise, naming their items. Past the
+    dense limit a functional takes the blocked route, and range separation
+    whose tensors do not fit the dense route together raises, naming
+    mol.densityfit()."""
     mol = _port_mol("b3lyp-restricted")
     qc = dqt.KS(mol, xc="camb3lyp")
     th = qc._build_theta(qc._all_params())
@@ -164,12 +166,13 @@ def test_ks_takes_meta_ggas_and_range_separation_on_the_dense_route(
             {}, torch.zeros(2, 2), 0)
     nao = mol.meta.nao
     monkeypatch.setattr(tqc.config, "DENSE_ERI_BYTES_LIMIT", nao ** 4 * 8)
-    dqt.KS(mol, xc="pbe")                        # one tensor still fits
-    with pytest.raises(NotImplementedError, match="A11.*A12"):
+    assert dqt.KS(mol, xc="pbe").jk_mode == "dense"   # one tensor fits
+    with pytest.raises(NotImplementedError, match=r"mol\.densityfit\(\)"):
         dqt.KS(mol, xc="camb3lyp")               # two do not
     monkeypatch.setattr(tqc.config, "DENSE_ERI_BYTES_LIMIT", 100)
-    with pytest.raises(NotImplementedError, match="A12"):
-        dqt.KS(mol, xc="pbe")
+    assert dqt.KS(mol, xc="pbe").jk_mode == "blocked"
+    monkeypatch.setattr(tqc.config, "BLOCKED_JK_BYTES_LIMIT", 100)
+    assert dqt.KS(mol, xc="pbe").jk_mode == "stream"
 
 
 def test_jax_theta_is_the_dense_route():
