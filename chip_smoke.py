@@ -21,8 +21,12 @@ the O2 triplet (UKS-LDA) against PySCF; then the exact routes past the
 dense limit (the canonical quartet blocks of scf/jk.py cached, or streamed
 on every Fock build): B3LYP on benzene and its forces, and on vitamin C,
 against the dense route in the same run, the streamed route on benzene, and
-the dimer without densityfit(). Any failed check or exception ends the run
-with a non-zero exit code. Without a CUDA device it fails at once and
+the dimer without densityfit(); then the property API's second and third
+derivatives of the energy through the SCF (HF H2O/3-21G against CCCBDB and
+the JAX package, B3LYP H2O/def2-SVP against central differences, the
+polarizability and multipoles of benzene) and the variational SCF (H2O,
+and benzene B3LYP against its DIIS energy). Any failed check or exception
+ends the run with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
 One JSON object per line: `device`, the card's name and power limit as
@@ -38,7 +42,8 @@ version's, with launch counts, and one double backward), `forces` (benzene
 B3LYP forces by implicit differentiation against
 tools/.force_cpu_def2-svp.npz: |dE|, max|dF| against the stored forces'
 mirror-symmetric part and raw, the forces' mirror gap, the grid's, |sum F|,
-seconds, GMRES records, launches inside the gradient, peak memory),
+seconds, GMRES records, launches inside the gradient, peak memory, and
+whether the calc outlives the phase once dropped: calc_alive_after_grad),
 `forces_fd` (central differences of the energy on the card), `cam_b3lyp`
 (with K1 on the erf tensor against its plain version and one steady
 iteration under the profiler), `meta_gga` (SCAN on benzene, and the PySCF
@@ -52,10 +57,15 @@ eri_k, and a repeat of them bit for bit), `blocked_forces`,
 `stream_b3lyp`, `blocked_vitamin_c` (beside `vitamin_c`: the block build's
 seconds against eri_dense's, the peaks, the allocator's retries and the
 bra blocks coulomb_contract chose in both), `blocked_beyond_dense`,
-`small`, `kernels` (K3's row
+`variational_benzene` (the "ov" variational SCF on the main path's theta),
+`props_h2o_hf`, `props_h2o_b3lyp` and `props_benzene` (each property
+call's launches and seconds apart, the forward/backward/column seconds and
+GMRES records of each derivative, peaks), `small`, `kernels` (K3's row
 also has its registers and spills from this run's ptxas report; every row
 its launches on every path, K1's also on the erf tensor: each path's own
-SCF, with those of the atomic SCFs of its SAD start apart), and as the last
+SCF, with those of the atomic SCFs of its SAD start apart; and those inside
+the second- and third-order property calls and the variational SCFs), and
+as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
 Imports the port only; nothing of JAX and nothing of the JAX package.
@@ -69,6 +79,7 @@ import re
 import subprocess
 import sys
 import time
+import weakref
 from collections import Counter
 from concurrent.futures import ThreadPoolExecutor
 from contextlib import contextmanager
@@ -82,6 +93,7 @@ if not torch.cuda.is_available():
     sys.exit(2)
 
 import dqc_tpu_torch as dq                                    # noqa: E402
+from dqc_tpu_torch.api import properties as P                 # noqa: E402
 from dqc_tpu_torch.ops import (                               # noqa: E402
     _nvcc, eri, hopper_jk, hopper_xc, integrals)
 from dqc_tpu_torch.ops.hopper_jk import (                     # noqa: E402
@@ -241,8 +253,9 @@ def auto_blocks():
 
 def free_device():
     """Frees what the last phase left on the card before the next one reads
-    its peak: a dense calc survives its energy_grad in a reference cycle
-    until the garbage collector runs, and holds its tensors until then."""
+    its peak. The collection is hygiene: nothing of the port is known to
+    outlive its phase in a reference cycle (the forces phase checks that
+    its calc is freed when dropped, before any collection)."""
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -589,7 +602,14 @@ def grid_mirror_gaps(grid):
 def forces(smi_line):
     """Benzene B3LYP/def2-SVP nuclear forces on the card, against the JAX
     package's stored forces, their own mirror images and central
-    differences of the energy on the card."""
+    differences of the energy on the card. The first gradient of the
+    process: with the cyclic garbage collector off from the moment
+    energy_grad returns, a weak reference to the calc must be dead once
+    the phase drops it (calc_alive_after_grad). A cycle that holds the calc
+    cannot be collected before then (the calc is still this frame's), and
+    the collector stays on during the gradient, whose backward makes
+    cycles of its own that hold device memory until it runs (with it off
+    for the whole phase the gradient ran out of the card's memory)."""
     ref = np.load(FORCE_NPZ)
     torch.cuda.reset_peak_memory_stats()
     mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
@@ -600,6 +620,7 @@ def forces(smi_line):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     g = calc.energy_grad()
+    gc.disable()
     launches = _launch_counts()
     peak = torch.cuda.max_memory_allocated()
     F = -g["basis"]["atompos"].detach().cpu().numpy()
@@ -632,7 +653,15 @@ def forces(smi_line):
            "scf_iterations": calc.stats["iterations"],
            "residual": calc.stats["residual"],
            "forces": F.tolist(), "card": smi_line}
+    # the second witness: central differences of energy_fn on the card
+    central_differences("forces_fd", calc, F)
+    alive = weakref.ref(calc)
+    del calc, g
+    rec["calc_alive_after_grad"] = alive() is not None
+    gc.enable()
     emit({"forces": rec})
+    if rec["calc_alive_after_grad"]:
+        fail("the calc of energy_grad outlives the phase that dropped it")
     if not np.all(np.isfinite(F)) or F.shape != (12, 3):
         fail(f"forces not finite or of shape {F.shape}")
     if dE > FORCE_E_GATE:
@@ -649,9 +678,6 @@ def forces(smi_line):
         fail(f"sum of the forces {sumF:.3e} (translation invariance)")
     if not all(v > 0 for v in launches.values()):
         fail(f"kernels inside the gradient: {launches}")
-
-    # the second witness: central differences of energy_fn on the card
-    central_differences("forces_fd", calc, F)
     return rec
 
 
@@ -1573,6 +1599,495 @@ def blocked_beyond_dense(smi_line, e_benzene, theta_zz, e_df_dimer):
     return rec, checks
 
 
+# --- properties (api/properties.py): second and third derivatives -------
+
+# H2O at the CCCBDB geometry of tests/test_properties.py:12 (Bohr)
+H2O_CCCBDB = "O 0.0 0.0 0.2156; H 0.0 1.4749 -0.8625; H 0.0 -1.4749 -0.8625"
+PROPS_TOL = 1e-11
+# CCCBDB's HF/3-21G values, with the tolerances of tests/test_properties.py
+CCCBDB_FREQS = ((3944.0, 3811.0, 1800.0), 1.5e-3)            # cm^-1, rtol
+CCCBDB_IR = ((9.123, 0.047, 79.89), 1e-2)                     # km/mol, rtol
+CCCBDB_RAMAN = ((44.12, 95.71, 11.5), 1e-3)                   # angst^4/amu
+CCCBDB_DIPOLE_D = (2.39, 0.03)                                # |mu|, abs
+CCCBDB_QUAD = ((-6.838, -3.972, -5.882), 2e-4, 1e-3)   # debye*angst diag
+H2_BOND_BOHR = (1.3886, 2e-3)    # HF/3-21G H2 optimum (CCCBDB 0.7348 A)
+# dqc_tpu HF/3-21G at H2O_CCCBDB, SCFOptions(mixed=False, tol=1e-11), one
+# JAX-CPU run on an x86-64 host (about 20 minutes, most of it compiles):
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py props_h2o_321g
+# The port on the CPU gives the same values to 2e-11 relative (its CPU
+# tests hold the STO-3G ones to 1e-9); the card is held to 1e-8 relative
+# of each quantity's largest entry (the orbital Hessian's eigenvalue, 0 at
+# a minimum up to rounding, to 1e-9 absolute).
+JAX_H2O_321G = {
+    "energy_ha": -75.58595972167704,
+    "hessian_pos": [
+        [0.000125292458, 0.0, 0.0, -6.2646229e-05, 0.0, 0.0,
+         -6.2646229e-05, 0.0, 0.0],
+        [0.0, 0.714854376056, 0.0, 0.0, -0.357427188028, 0.261220904818,
+         0.0, -0.357427188028, -0.261220904818],
+        [0.0, 0.0, 0.435349085382, 0.0, 0.182619304846, -0.217674542691,
+         0.0, -0.182619304846, -0.217674542691],
+        [-6.2646229e-05, 0.0, 0.0, 5.4016281e-05, 0.0, 0.0, 8.629948e-06,
+         0.0, 0.0],
+        [0.0, -0.357427188028, 0.182619304846, 0.0, 0.394903047354,
+         -0.221920104832, 0.0, -0.037475859326, 0.039300799986],
+        [0.0, 0.261220904818, -0.217674542691, 0.0, -0.221920104832,
+         0.204331609195, 0.0, -0.039300799986, 0.013342933495],
+        [-6.2646229e-05, 0.0, 0.0, 8.629948e-06, 0.0, 0.0, 5.4016281e-05,
+         0.0, 0.0],
+        [0.0, -0.357427188028, -0.182619304846, 0.0, -0.037475859326,
+         -0.039300799986, 0.0, 0.394903047354, 0.221920104832],
+        [0.0, -0.261220904818, -0.217674542691, 0.0, 0.039300799986,
+         0.013342933496, 0.0, 0.221920104832, 0.204331609195]],
+    "freqs_cm1": [3944.206909789844, 3810.890569042306, 1799.5079881717797],
+    "ir_km_mol": [9.126543196358691, 0.04716721012258457, 79.8853665779199],
+    "raman_angst4_amu": [44.109334891664034, 95.69863429581063,
+                         11.499770995016638],
+    "edipole_au": [0.0, 0.0, -0.9393500007677126],
+    "equadrupole_au": [[-5.084067395974944, 0.0, 0.0],
+                       [0.0, -2.953285499921961, 0.0],
+                       [0.0, 0.0, -4.373143655026587]],
+    # O[0,0,2], O[1,1,2], O[2,2,2]; the other entries are 0 or their
+    # permutations
+    "eoctupole_au": [-0.42592822669377006, -1.718296885526334,
+                     -1.6690340597907816],
+    "polarizability_au": [[0.7833401718708018, 0.0, 0.0],
+                          [0.0, 6.803865398908144, 0.0],
+                          [0.0, 0.0, 3.628527017009193]],
+    "lowest_eival_orb_hessian": -1.645090240902957e-14,
+}
+PROPS_JAX_GATE_REL = 1e-8
+VAR_GATE_HA = 1e-8         # the variational SCF against DIIS, same run
+# central differences on the card: position step (Bohr) and field step
+# (a.u.), and the gates (a.u.): truncation and the SCF's 1e-11 residual
+# over 2h stay one to two orders below each
+PROP_FD_POS = 1e-4
+PROP_FD_FIELD = 1e-4
+HESS_FD_GATE = 1e-6
+ALPHA_FD_GATE = 1e-5
+DALPHA_FD_GATE = 1e-5
+# benzene: the dipole is 0 by symmetry; Theta_zz from equadrupole against
+# quadrupole_zz's contraction; alpha's off-diagonal entries 0 by the mirror
+# symmetries the grid keeps, and its diagonal against central differences
+# of the dipole (two fields per axis). alpha_xx = alpha_yy needs the
+# six-fold axis, which the grid breaks (each atom's Lebedev grid is fixed
+# in the lab frame): B3LYP's alpha_xx - alpha_yy is held to the same
+# difference of the central differences, and HF's (no grid) to 1e-8
+BENZENE_DIPOLE_GATE = 1e-9
+THETA_ZZ_GATE = 1e-8
+BENZENE_ALPHA_SYM_GATE = 1e-8
+
+
+def props_call(counts, key, fn):
+    """fn() with the kernels' launches counted apart under `key` (counts
+    set to 0 just before, read just after) beside its seconds."""
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    counts[key] = dict(path_counts(), seconds=time.perf_counter() - t0)
+    return out
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _rel_err(a, b):
+    a, b = np.asarray(a, dtype=float), np.asarray(b, dtype=float)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-300))
+
+
+def props_h2o_hf(smi_line):
+    """All eleven property functions on HF H2O/3-21G on the card, against
+    CCCBDB (tests/test_properties.py's tolerances) and the JAX package's
+    values; H2's optimal geometry; the variational SCF with each orbital
+    parametrisation against DIIS in the same run."""
+    t_phase = time.perf_counter()
+    mol = dq.Mol(H2O_CCCBDB, basis="3-21G")
+    calc = dq.HF(mol, opts=dq.SCFOptions(tol=PROPS_TOL))
+    calc.run()
+    e = float(calc.energy())
+    counts = {}
+    hess = _np(props_call(counts, "hessian_pos",
+                          lambda: P.hessian_pos(calc)))
+    freqs, _ = props_call(counts, "vibration",
+                          lambda: P.vibration(calc))
+    _, ir = props_call(counts, "ir_spectrum",
+                       lambda: P.ir_spectrum(calc))
+    _, raman = props_call(counts, "raman_spectrum",
+                          lambda: P.raman_spectrum(calc))
+    mu = _np(props_call(counts, "edipole", lambda: P.edipole(calc)))
+    mu_d = _np(P.edipole(calc, unit="debye"))
+    quad = _np(props_call(counts, "equadrupole",
+                          lambda: P.equadrupole(calc)))
+    quad_da = _np(P.equadrupole(calc, unit="debye*angst"))
+    octu = _np(props_call(counts, "eoctupole",
+                          lambda: P.eoctupole(calc)))
+    alpha = _np(props_call(counts, "polarizability",
+                           lambda: P.polarizability(calc)))
+    eig = float(props_call(counts, "lowest_eival_orb_hessian",
+                           lambda: P.lowest_eival_orb_hessian(calc)))
+    orb_min = props_call(counts, "is_orb_min",
+                         lambda: P.is_orb_min(calc))
+    freqs, ir, raman = _np(freqs), _np(ir), _np(raman)
+    jax = JAX_H2O_321G
+    errs = {
+        "energy_ha": abs(e - jax["energy_ha"]),
+        "hessian_pos": _rel_err(hess, jax["hessian_pos"]),
+        "freqs_cm1": _rel_err(freqs[:3], jax["freqs_cm1"]),
+        "ir_km_mol": _rel_err(ir[:3], jax["ir_km_mol"]),
+        "raman_angst4_amu": _rel_err(raman[:3], jax["raman_angst4_amu"]),
+        "edipole_au": _rel_err(mu, jax["edipole_au"]),
+        "equadrupole_au": _rel_err(quad, jax["equadrupole_au"]),
+        "eoctupole_au": _rel_err([octu[0, 0, 2], octu[1, 1, 2],
+                                  octu[2, 2, 2]], jax["eoctupole_au"]),
+        "polarizability_au": _rel_err(alpha, jax["polarizability_au"]),
+        "lowest_eival_orb_hessian": abs(eig
+                                        - jax["lowest_eival_orb_hessian"]),
+    }
+    octu_sym = max(float(np.abs(octu - octu.transpose(p)).max())
+                   for p in ((1, 0, 2), (0, 2, 1), (2, 1, 0)))
+    # H2's optimal geometry (tests/test_properties.py:60-68)
+    qc_h2 = dq.HF(dq.Mol("H 0 0 0; H 1.3 0 0", basis="3-21G"),
+                  opts=dq.SCFOptions(tol=PROPS_TOL))
+    qc_h2.run()
+    pos = _np(props_call(counts, "optimal_geometry",
+                         lambda: P.optimal_geometry(qc_h2)))
+    bond = float(np.linalg.norm(pos[1] - pos[0]))
+    # the variational SCF, each parametrisation, from the same start
+    var = {}
+    for op in ("matexp", "qr", "ov"):
+        qv = dq.HF(mol, opts=dq.SCFOptions(method="variational",
+                                           orb_param=op))
+        props_call(counts, f"variational_{op}", qv.run)
+        st = qv.stats
+        var[op] = {"energy_ha": float(qv.energy()),
+                   "minus_diis_ha": float(qv.energy()) - e,
+                   "bfgs_iterations": st["iterations"],
+                   "evaluations": st["var_evaluations"],
+                   "status": st["var_message"],
+                   "grad_max_abs": st["var_grad_max_abs"],
+                   "residual": st["residual"]}
+    rec = {"system": "H2O (CCCBDB geometry)", "basis": "3-21G",
+           "method": "RHF", "nao": mol.meta.nao, "energy_ha": e,
+           "residual": calc.stats["residual"],
+           "freqs_cm1": freqs.tolist(), "ir_km_mol": ir.tolist(),
+           "raman_angst4_amu": raman.tolist(), "edipole_au": mu.tolist(),
+           "edipole_debye": mu_d.tolist(),
+           "equadrupole_debye_angst": quad_da.tolist(),
+           "polarizability_au": alpha.tolist(),
+           "lowest_eival_orb_hessian": eig, "is_orb_min": orb_min,
+           "octupole_max_asymmetry": octu_sym,
+           "jax_rel_err": errs, "jax_gate_rel": PROPS_JAX_GATE_REL,
+           "h2_optimal_bond_bohr": bond,
+           "h2_bfgs": qc_h2.stats["props"]["optimal_geometry"],
+           "variational": var, "calls": counts,
+           "records": {k: {kk: vv for kk, vv in v.items() if kk != "gmres"}
+                       | {"gmres_solves": len(v.get("gmres", [])),
+                          "gmres_max_rel": max([r["rel"] for r in
+                                                v.get("gmres", [])],
+                                               default=0.0)}
+                       for k, v in calc.stats["props"].items()},
+           "seconds": time.perf_counter() - t_phase, "card": smi_line}
+    emit({"props_h2o_hf": rec})
+    for name, (want, rtol) in (("freqs_cm1", CCCBDB_FREQS),
+                               ("ir_km_mol", CCCBDB_IR),
+                               ("raman_angst4_amu", CCCBDB_RAMAN)):
+        got = np.asarray(rec[name][:3])
+        if not np.all(np.abs(got - want) <= rtol * np.abs(want)):
+            fail(f"props_h2o_hf: {name} {got.tolist()} vs CCCBDB {want} "
+                 f"(rtol {rtol})")
+    if abs(np.linalg.norm(mu_d) - CCCBDB_DIPOLE_D[0]) > CCCBDB_DIPOLE_D[1]:
+        fail(f"props_h2o_hf: |mu| {np.linalg.norm(mu_d)} D vs CCCBDB")
+    want_q, rtol_q, atol_q = CCCBDB_QUAD
+    if not np.all(np.abs(quad_da - np.diag(want_q))
+                  <= atol_q + rtol_q * np.abs(np.diag(want_q))):
+        fail(f"props_h2o_hf: quadrupole {quad_da.tolist()} vs CCCBDB")
+    for k, err in errs.items():
+        gate = (1e-9 if k in ("energy_ha", "lowest_eival_orb_hessian")
+                else PROPS_JAX_GATE_REL)
+        if not err <= gate:
+            fail(f"props_h2o_hf: {k} {err:.3e} from the JAX package's "
+                 f"(gate {gate})")
+    if octu_sym > 1e-12 or not orb_min:
+        fail(f"props_h2o_hf: octupole asymmetry {octu_sym}, is_orb_min "
+             f"{orb_min}")
+    if abs(bond - H2_BOND_BOHR[0]) > H2_BOND_BOHR[1]:
+        fail(f"props_h2o_hf: H2 optimal bond {bond} vs {H2_BOND_BOHR}")
+    for op, v in var.items():
+        if not abs(v["minus_diis_ha"]) <= VAR_GATE_HA:
+            fail(f"props_h2o_hf: variational {op} {v['minus_diis_ha']:.3e} "
+                 "Ha from DIIS")
+    for key in ("hessian_pos", "ir_spectrum", "raman_spectrum",
+                "polarizability", "lowest_eival_orb_hessian",
+                "variational_ov"):
+        if not counts[key]["ds_jk"] > 0:
+            fail(f"props_h2o_hf: K1 not launched in {key}: {counts[key]}")
+    return rec
+
+
+def _dipole_at(calc, field):
+    """-dE/dE_field + the nuclear dipole of a calc's molecule in a uniform
+    field (energy_fn at those params, the field the only leaf)."""
+    p = P._params(calc, "efield")
+    p["efield"] = torch.as_tensor(field, dtype=torch.float64, device=DEV)
+    with torch.enable_grad():
+        pp, (f,) = calc._leaves(p, wrt=[("efield",)])
+        (g,) = torch.autograd.grad(calc.energy_fn(pp), f)
+    pos = p["basis"]["atompos"].detach()
+    return _np(-g + torch.einsum("a,ad->d", p["atomzs"], pos))
+
+
+# near the B3LYP/def2-SVP optimum of H2O (OH 1.819 Bohr, HOH 102.7
+# degrees), distorted by a few hundredths of a Bohr
+H2O_DISTORTED = "O 0.0 0.0 0.2; H 0.0 1.4509 -0.9363; H 0.0 -1.4209 -0.9163"
+
+
+def props_h2o_b3lyp(smi_line):
+    """B3LYP H2O/def2-SVP (grid 2) on the card through K1-K3:
+    optimal_geometry from a distorted start; at the optimum the Hessian
+    (and the frequencies: three real modes) against central differences
+    of energy_grad, the polarizability against central differences of the
+    dipole in a field, and Raman's dalpha/dR (a third derivative) against
+    central differences of the polarizability."""
+    t_phase = time.perf_counter()
+    counts = {}
+    qo = dq.KS(dq.Mol(H2O_DISTORTED, basis="def2-svp", grid=2),
+               xc="b3lyp", opts=dq.SCFOptions(tol=PROPS_TOL))
+    qo.run()
+    pos_opt = props_call(counts, "optimal_geometry",
+                         lambda: P.optimal_geometry(qo))
+    mol = qo.mol.make_copy(atompos=pos_opt)
+    calc = dq.KS(mol, xc="b3lyp", opts=dq.SCFOptions(tol=PROPS_TOL))
+    calc.run()
+    hess = _np(props_call(counts, "hessian_pos",
+                          lambda: P.hessian_pos(calc)))
+    freqs = _np(P.vibration(calc)[0])
+    small = sorted(np.abs(freqs))[:6]
+    p0 = calc._all_params()
+    pos0 = p0["basis"]["atompos"].detach()
+    hess_fd = []
+    for atom, axis in ((0, 2), (1, 1)):
+        gs = []
+        for sgn in (1, -1):
+            pos = pos0.clone()
+            pos[atom, axis] += sgn * PROP_FD_POS
+            gs.append(_np(calc.energy_grad(dict(p0, basis=dict(
+                p0["basis"], atompos=pos)))["basis"]["atompos"]).ravel())
+        fd = (gs[0] - gs[1]) / (2 * PROP_FD_POS)
+        hess_fd.append({"atom": atom, "axis": axis, "max_abs_diff": float(
+            np.abs(hess[:, 3 * atom + axis] - fd).max())})
+    alpha = _np(props_call(counts, "polarizability",
+                           lambda: P.polarizability(calc)))
+    alpha_fd = []
+    for axis in range(3):
+        f = np.zeros(3)
+        f[axis] = PROP_FD_FIELD
+        fd = (_dipole_at(calc, f) - _dipole_at(calc, -f)) / (2 * PROP_FD_FIELD)
+        alpha_fd.append({"axis": axis, "max_abs_diff": float(
+            np.abs(alpha[:, axis] - fd).max())})
+    alpha2, da = props_call(counts, "dalpha_dpos",
+                            lambda: P._dalpha_dpos(calc))
+    da = _np(da)
+    da_fd = []
+    for atom, axis in ((1, 1),):
+        al = []
+        for sgn in (1, -1):
+            pos = pos0.clone()
+            pos[atom, axis] += sgn * PROP_FD_POS
+            qd = dq.KS(mol.make_copy(atompos=pos), xc="b3lyp",
+                       opts=dq.SCFOptions(tol=PROPS_TOL))
+            qd.run()
+            al.append(_np(P.polarizability(qd)))
+        fd = (al[0] - al[1]) / (2 * PROP_FD_POS)
+        da_fd.append({"atom": atom, "axis": axis, "max_abs_diff": float(
+            np.abs(da[:, :, 3 * atom + axis] - fd).max())})
+    rec = {"system": "H2O (B3LYP/def2-SVP optimum)", "basis": "def2-svp",
+           "method": "RKS-B3LYP", "grid": 2, "nao": mol.meta.nao,
+           "ngrid": int(calc._theta["grid"]["dvol"].shape[0]),
+           "start": H2O_DISTORTED, "optimal_geometry": _np(pos_opt).tolist(),
+           "optimum_bfgs": qo.stats["props"]["optimal_geometry"],
+           "energy_ha": float(calc.energy()),
+           "residual": calc.stats["residual"],
+           "freqs_at_optimum_cm1": freqs.tolist(),
+           "six_smallest_abs_freqs_cm1": [float(x) for x in small],
+           "hessian_fd": hess_fd, "hessian_fd_gate": HESS_FD_GATE,
+           "polarizability_au": alpha.tolist(), "alpha_fd": alpha_fd,
+           "alpha_fd_gate": ALPHA_FD_GATE,
+           "alpha_from_dalpha_call_max_abs_diff": float(
+               np.abs(_np(alpha2) - alpha).max()),
+           "dalpha_fd": da_fd, "dalpha_fd_gate": DALPHA_FD_GATE,
+           "fd_steps": {"position_bohr": PROP_FD_POS,
+                        "field_au": PROP_FD_FIELD},
+           "calls": counts,
+           "seconds": time.perf_counter() - t_phase, "card": smi_line}
+    emit({"props_h2o_b3lyp": rec})
+    for name, rows, gate in (("hessian", hess_fd, HESS_FD_GATE),
+                             ("alpha", alpha_fd, ALPHA_FD_GATE),
+                             ("dalpha/dR", da_fd, DALPHA_FD_GATE)):
+        for r in rows:
+            if not r["max_abs_diff"] <= gate:
+                fail(f"props_h2o_b3lyp: {name} vs central differences "
+                     f"{r}, gate {gate}")
+    if not np.allclose(hess, hess.T, rtol=0, atol=1e-12):
+        fail("props_h2o_b3lyp: the Hessian is not symmetric")
+    if rec["alpha_from_dalpha_call_max_abs_diff"] > 1e-9:
+        fail("props_h2o_b3lyp: the field Hessian of _dalpha_dpos differs "
+             "from polarizability")
+    real = np.sort(freqs)[-3:]
+    if not (real[0] > 1000.0 and small[-1] < 0.5 * real[0]):
+        fail(f"props_h2o_b3lyp: frequencies at the optimum {freqs}: three "
+             "real modes above 1000 cm^-1, the six others below half the "
+             "smallest of them, expected")
+    for key in ("hessian_pos", "polarizability", "dalpha_dpos",
+                "optimal_geometry"):
+        if not all(counts[key][k] > 0
+                   for k in ("ds_jk", "ds_dens_gga", "ds_vxc_gga")):
+            fail(f"props_h2o_b3lyp: K1-K3 not all launched in {key}: "
+                 f"{counts[key]}")
+    return rec
+
+
+def props_benzene(smi_line):
+    """The main path's molecule and functional (B3LYP/def2-SVP, grid 2):
+    the dipole (0 by symmetry), Theta_zz from equadrupole against the
+    density's second moment, and the polarizability, its off-diagonal
+    entries and its diagonal against central differences of the dipole;
+    then HF's polarizability, whose alpha_xx = alpha_yy no grid breaks.
+    The derivatives take the fields as their only leaves."""
+    t_phase = time.perf_counter()
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    calc = dq.KS(mol, xc="b3lyp", opts=dq.SCFOptions(tol=PROPS_TOL))
+    calc.run()
+    torch.cuda.synchronize()
+    counts, peaks = {}, {}
+    out = {}
+    for name, fn in (("edipole", lambda: P.edipole(calc)),
+                     ("equadrupole", lambda: P.equadrupole(calc)),
+                     ("polarizability",
+                      lambda: P.polarizability(calc))):
+        torch.cuda.reset_peak_memory_stats()
+        out[name] = _np(props_call(counts, name, fn))
+        peaks[name] = torch.cuda.max_memory_allocated()
+    mu, quad, alpha = out["edipole"], out["equadrupole"], out[
+        "polarizability"]
+    theta_zz = 0.5 * (2 * quad[2, 2] - quad[0, 0] - quad[1, 1])
+    theta_zz_ref = quadrupole_zz(calc)
+    fd = {}
+    for axis in range(3):
+        f = np.zeros(3)
+        f[axis] = PROP_FD_FIELD
+        col = (_dipole_at(calc, f) - _dipole_at(calc, -f)) / (
+            2 * PROP_FD_FIELD)
+        fd[axis] = float(col[axis])
+    fd_err = {"xyz"[a]: abs(float(alpha[a, a]) - fd[a]) for a in range(3)}
+    aniso = float(alpha[0, 0] - alpha[1, 1])
+    aniso_fd = fd[0] - fd[1]
+    off = alpha - np.diag(np.diag(alpha))
+    records = {k: {kk: vv for kk, vv in v.items() if kk != "gmres"}
+               | {"gmres": v.get("gmres", [])}
+               for k, v in calc.stats["props"].items()}
+    rec = {"system": "benzene", "basis": "def2-svp", "method": "RKS-B3LYP",
+           "grid": 2, "nao": mol.meta.nao, "energy_ha": float(calc.energy()),
+           "energy_minus_anchor_ha": float(calc.energy()) - KS_ANCHOR_HA,
+           "edipole_au": mu.tolist(), "theta_zz_au": theta_zz,
+           "theta_zz_quadrupole_zz_au": theta_zz_ref,
+           "polarizability_au": alpha.tolist(),
+           "alpha_xx_minus_yy": aniso,
+           "alpha_xx_minus_yy_central_differences": aniso_fd,
+           "alpha_max_abs_offdiag": float(np.abs(off).max()),
+           "alpha_fd_abs_diff": fd_err, "alpha_fd_gate": ALPHA_FD_GATE,
+           "field_step_au": PROP_FD_FIELD,
+           "records": records, "peak_device_bytes": peaks, "calls": counts}
+    del calc
+    free_device()
+    # HF on the same molecule: no grid, so alpha_xx = alpha_yy holds
+    hf = dq.HF(mol, opts=dq.SCFOptions(tol=PROPS_TOL))
+    hf.run()
+    torch.cuda.reset_peak_memory_stats()
+    alpha_hf = _np(props_call(counts, "polarizability_hf",
+                              lambda: P.polarizability(hf)))
+    peaks["polarizability_hf"] = torch.cuda.max_memory_allocated()
+    rec.update(
+        hf_energy_ha=float(hf.energy()),
+        hf_energy_minus_anchor_ha=float(hf.energy()) - HF_ANCHOR_HA,
+        hf_polarizability_au=alpha_hf.tolist(),
+        hf_alpha_xx_minus_yy=float(alpha_hf[0, 0] - alpha_hf[1, 1]),
+        hf_alpha_max_abs_offdiag=float(np.abs(
+            alpha_hf - np.diag(np.diag(alpha_hf))).max()),
+        seconds=time.perf_counter() - t_phase, card=smi_line)
+    emit({"props_benzene": rec})
+    if abs(rec["energy_minus_anchor_ha"]) > KS_GATE_HA or \
+            abs(rec["hf_energy_minus_anchor_ha"]) > 1e-7:
+        fail(f"props_benzene: energies {rec['energy_ha']!r}, "
+             f"{rec['hf_energy_ha']!r} vs their anchors")
+    if float(np.abs(mu).max()) > BENZENE_DIPOLE_GATE:
+        fail(f"props_benzene: dipole {mu.tolist()} (0 by symmetry)")
+    if abs(theta_zz - theta_zz_ref) > THETA_ZZ_GATE:
+        fail(f"props_benzene: Theta_zz {theta_zz!r} vs {theta_zz_ref!r}")
+    if rec["alpha_max_abs_offdiag"] > BENZENE_ALPHA_SYM_GATE:
+        fail(f"props_benzene: alpha {alpha.tolist()}: off-diagonal entries")
+    if max(fd_err.values()) > ALPHA_FD_GATE or \
+            abs(aniso - aniso_fd) > 2 * ALPHA_FD_GATE:
+        fail(f"props_benzene: alpha vs central differences {fd_err}, "
+             f"xx - yy {aniso!r} vs {aniso_fd!r}")
+    if abs(rec["hf_alpha_xx_minus_yy"]) > BENZENE_ALPHA_SYM_GATE or \
+            rec["hf_alpha_max_abs_offdiag"] > BENZENE_ALPHA_SYM_GATE:
+        fail(f"props_benzene: HF alpha {alpha_hf.tolist()} lacks the "
+             "symmetry")
+    for name in ("edipole", "equadrupole", "polarizability"):
+        if not all(counts[name][k] > 0
+                   for k in ("ds_jk", "ds_dens_gga", "ds_vxc_gga")):
+            fail(f"props_benzene: K1-K3 not all launched in {name}: "
+                 f"{counts[name]}")
+    if not counts["polarizability_hf"]["ds_jk"] > 0:
+        fail(f"props_benzene: K1 not launched in HF's polarizability: "
+             f"{counts['polarizability_hf']}")
+    return rec
+
+
+def variational_benzene(smi_line, mol, theta, e_diis):
+    """B3LYP benzene by the variational solver (orb_param "ov": 21 x 93
+    rotation parameters) from the port's start Fock (SAD), on the main
+    path's theta, against the DIIS energy of the same run."""
+    calc = dq.KS(mol, xc="b3lyp", variational=True,
+                 opts=dq.SCFOptions(orb_param="ov"))
+    calc._theta = theta
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    calc.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, launches_sad = path_counts(), sad_counts()
+    st = calc.stats
+    e = float(calc.energy())
+    rec = {"system": "benzene", "basis": "def2-svp", "method": "RKS-B3LYP",
+           "orb_param": "ov", "parameters": 21 * 93, "energy_ha": e,
+           "minus_diis_ha": e - e_diis,
+           "energy_minus_anchor_ha": e - KS_ANCHOR_HA,
+           "bfgs_iterations": st["iterations"],
+           "evaluations": st["var_evaluations"],
+           "status": st["var_message"],
+           "grad_max_abs": st["var_grad_max_abs"],
+           "residual": st["residual"], "guess": st.get("guess"),
+           "sad_s": st.get("sad_s"), "seconds": seconds,
+           "launches": launches, "launches_sad": launches_sad,
+           "card": smi_line}
+    emit({"variational_benzene": rec})
+    if not abs(rec["minus_diis_ha"]) <= VAR_GATE_HA:
+        fail(f"variational_benzene: {rec['minus_diis_ha']:.3e} Ha from DIIS")
+    if rec["guess"] != "sad":
+        fail(f"variational_benzene: started from {rec['guess']!r}")
+    if not all(launches[k] > 0 for k in ("ds_jk", "ds_dens_gga",
+                                         "ds_vxc_gga")):
+        fail(f"variational_benzene: K1-K3 not all launched: {launches}")
+    return rec
+
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -1939,6 +2454,9 @@ def main():
     emit({"ks_iteration_profile": ks_profile})
     # the dense monomer's quadrupole, for the dimer phases
     theta_zz = quadrupole_zz(calc)
+    # the variational solver on the main path's theta, against its DIIS
+    var_rec = variational_benzene(smi_line, mol, theta, e_kernel)
+    free_device()
 
     # 9. the blocked route on the main path's molecule, held against K1 on
     # this eri_k
@@ -1956,6 +2474,17 @@ def main():
     blocked_force_rec = blocked_forces(smi_line, force_rec)
     free_device()
     stream_rec = stream_b3lyp(smi_line, main_ks)
+    free_device()
+
+    # 10b. properties: second and third derivatives of the energy through
+    # the SCF (Hessians, polarizabilities, IR, Raman) on a small molecule
+    # against CCCBDB and the JAX package, through K1-K3 against central
+    # differences, and on the main path's molecule
+    props_hf = props_h2o_hf(smi_line)
+    free_device()
+    props_ks = props_h2o_b3lyp(smi_line)
+    free_device()
+    props_bz = props_benzene(smi_line)
     free_device()
 
     # 11. the breadth of the dense route: range separation, a meta-GGA, a
@@ -2032,6 +2561,30 @@ def main():
     def launches_of(name, paths=by_path):
         return {path: c.get(name, 0) for path, c in paths.items()}
 
+    # launches inside the property calls: second-order (Hessians,
+    # polarizabilities, IR's mixed derivative, the orbital Hessian), third
+    # order (Raman's dalpha/dR), and the variational solver's
+    prop_recs = {"props_h2o_hf": props_hf, "props_h2o_b3lyp": props_ks,
+                 "props_benzene": props_bz}
+    second = {"props_h2o_hf": ("hessian_pos", "ir_spectrum",
+                               "polarizability", "lowest_eival_orb_hessian"),
+              "props_h2o_b3lyp": ("hessian_pos", "polarizability"),
+              "props_benzene": ("polarizability", "polarizability_hf")}
+    third = {"props_h2o_hf": ("raman_spectrum",),
+             "props_h2o_b3lyp": ("dalpha_dpos",)}
+
+    def prop_launches(name):
+        def table(calls):
+            return {f"{ph}.{c}": prop_recs[ph]["calls"][c][name]
+                    for ph, cs in calls.items() for c in cs}
+        var = {f"props_h2o_hf.variational_{op}":
+               props_hf["calls"][f"variational_{op}"][name]
+               for op in ("matexp", "qr", "ov")}
+        var["variational_benzene"] = var_rec["launches"][name]
+        return {"launches_second_order": table(second),
+                "launches_third_order": table(third),
+                "launches_variational": var}
+
     # 14. a small molecule against its published energy
     qc = dq.HF(dq.Mol("H -0.5 0 0; H 0.5 0 0", basis="3-21G")).run()
     e_h2 = float(qc.energy())
@@ -2061,6 +2614,7 @@ def main():
         "launches_by_path": launches_of("ds_jk"),
         "launches_sad_by_path": launches_of("ds_jk", sad_by_path),
         "launches_eri_lr": cam_rec["launches"]["ds_jk_eri_lr"],
+        **prop_launches("ds_jk"),
         "n": n, "bytes_moved": k1_hf["bytes_moved"], "flops": k1_hf["flops"],
         "ms_runs": k1_ms, "plain_ms_runs": k1_plain,
         "ms_runs_hf_phase": k1_hf["ms_runs"],
@@ -2077,6 +2631,7 @@ def main():
             force_rec["launches_in_gradient"]["ds_dens_gga"],
         "launches_by_path": launches_of("ds_dens_gga"),
         "launches_sad_by_path": launches_of("ds_dens_gga", sad_by_path),
+        **prop_launches("ds_dens_gga"),
         "max_abs_err": xc_err(real_xc[:1]),
         "ms": min(k2_ms), "plain_ms": min(k2_plain),
         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": k2_lib,
@@ -2098,6 +2653,7 @@ def main():
             force_rec["launches_in_gradient"]["ds_vxc_gga"],
         "launches_by_path": launches_of("ds_vxc_gga"),
         "launches_sad_by_path": launches_of("ds_vxc_gga", sad_by_path),
+        **prop_launches("ds_vxc_gga"),
         "max_abs_err": xc_err(real_xc[1:]),
         "ms": min(k3_ms), "plain_ms": min(k3_plain),
         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": k3_lib,

@@ -6,9 +6,13 @@ and scipy only. Ported so far: molecules, the vendored basis sets, the
 one- and two-electron integrals, the integration grid, LDA, GGA and
 meta-GGA functionals (hybrids and range-separated hybrids included) and
 user-defined (neural) ones (xc/custom.CustomXC), restricted/unrestricted
-Hartree-Fock and Kohn-Sham from the SAD start, and their derivatives
-through the SCF. Two routes for J and K: the dense route, where on the
-card J and K of every Fock build, and the long-range K of a
+Hartree-Fock and Kohn-Sham from the SAD start or by direct (variational)
+minimisation, external fields and grid-tabulated potentials, derivatives
+through the SCF to any order, and the molecular properties built on them
+(api/properties.py: Hessians, vibrations, IR and Raman spectra, multipoles,
+polarizabilities, geometry optimisation, orbital-Hessian stability).
+Two routes for J and K: the dense route, where on the card J and K of
+every Fock build, and the long-range K of a
 range-separated hybrid, come from a hand-written CUDA kernel
 (ops/hopper_jk.py, csrc/ds_jk.cu); and, after mol.densityfit(), the
 density-fitted route (scf/df.py: RI-J and RI-K, and an attenuated-metric
@@ -25,22 +29,22 @@ from ._version import __version__  # noqa: F401
 from .api.parser import parse_moldesc            # noqa: F401
 from .basis import loadbasis                     # noqa: F401
 from .utils.datastruct import (                  # noqa: F401
-    SpinParam, CGTOBasis, AtomCGTOBasis)
+    SpinParam, ValGrad, CGTOBasis, AtomCGTOBasis)
 from .system.mol import Mol                      # noqa: F401
 from .scf.qccalc import HF, KS, SCF_QCCalc       # noqa: F401
 from .scf.fixed_point import SCFOptions          # noqa: F401
 from .xc import get_xc, get_libxc                # noqa: F401
+from .api import properties                      # noqa: F401
+from .api.properties import (                    # noqa: F401
+    hessian_pos, vibration, ir_spectrum, raman_spectrum, edipole,
+    equadrupole, eoctupole, polarizability, optimal_geometry,
+    lowest_eival_orb_hessian, is_orb_min)
 
 # names of the JAX package that later parts of the port bring
 _NOT_PORTED = {
     "Sol": "periodic systems (ROADMAP A14)",
-    "ValGrad": "the density containers of the property API (ROADMAP A13)",
     "band_energies": "k-point periodic systems (ROADMAP A15)",
 }
-for _n in ("hessian_pos", "vibration", "ir_spectrum", "raman_spectrum",
-           "edipole", "equadrupole", "eoctupole", "polarizability",
-           "optimal_geometry", "is_orb_min", "lowest_eival_orb_hessian"):
-    _NOT_PORTED[_n] = "properties are not ported yet (ROADMAP A13)"
 
 
 def __getattr__(name):

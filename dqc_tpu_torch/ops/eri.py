@@ -19,6 +19,12 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+# checkpoint imports torch._dynamo on its first call, and that import runs
+# torch.fx's wrap(), which keeps its own frame in a local: a cycle whose
+# f_back chain holds every frame below it until the cyclic garbage collector
+# runs. Made inside a gradient, the import would pin the caller's frames and
+# with them the calc; made here, it holds only import frames.
+import torch._dynamo  # noqa: F401
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.config import DTYPE, config

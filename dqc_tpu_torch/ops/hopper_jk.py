@@ -25,7 +25,8 @@ eri_k (eri_k[i,j,k,l] = (ik|jl)),
   T[i,j,k,l] = T[j,i,l,k]   ((ik|jl) = (jl|ik)),
 the cotangent in dm is the kernel itself applied to the cotangents:
   dmbar = out_trail(T, out_trail_bar) + out_mid(T, out_mid_bar),
-two more launches through the same Function, so second order works too.
+two more launches through the same Function, so every higher order works
+too (the Raman spectrum's third derivative launches K1 in each backward).
 The first symmetry gives the trailing term, the second the middle one.
 `_assert_pair_symmetric` checks both once per T with two probe contractions
 through the kernel and raises for a T without them. The cotangent of T,

@@ -36,7 +36,7 @@ potential and density arguments:
     d gdot_d / d dm_ij = 2 dphi_d,i phi_j, the factor 2 of WT);
   - ds_vxc_gga's cotangents in (vrho, vgrad) are ds_dens_gga(ao, ao_grad,
     Vbar).
-Both go through the Functions again, so second order works. The
+Both go through the Functions again, so every higher order works. The
 cotangents of the tables phi and dphi are products of (ng, nao) tables
 with nao x nao matrices in plain torch: backward contractions that no TPU
 kernel computed.

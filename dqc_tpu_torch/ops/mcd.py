@@ -109,6 +109,10 @@ def hermite_coulomb_R(L: int, p, PC, scale=None):
         for u in range(L + 1 - t):
             for v in range(L + 1 - t - u):
                 out[(t, u, v)] = R(0, t, u, v)
+    # R refers to itself through its closure: emptying the cell breaks that
+    # cycle, so memo's tensors go with this call and not when the cyclic
+    # garbage collector next runs
+    del R
     return out
 
 

@@ -13,13 +13,18 @@ scf/adjoint.py): a torch.autograd.Function over theta's floating tensor
 leaves whose forward runs `solver` under no_grad and whose backward solves
 (I - d step/dx)^T lam = xbar by restarted GMRES (`gmres`), then forms
 thetabar = (d step/d theta)^T lam by autograd. The linear solve is itself a
-Function (`_AdjointSolve`) whose backward is the untransposed solve, the
-role custom_linear_solve's transpose_solve plays in the JAX package; so a
-double backward gives exact second derivatives (Hessian-vector products),
-not the derivative of GMRES's iterations.
+Function (`_LinSolve`) whose backward is the other solve (the untransposed
+one for the adjoint, and back), the role custom_linear_solve's
+transpose_solve plays in the JAX package. Every backward here is made of
+that Function and of autograd of step at stand-ins for x and theta, which
+are views of them when the backward is itself recorded (a graph-building
+backward: create_graph=True); so derivatives of any order are exact at the
+fixed point (Hessians, and the third derivatives of a Raman spectrum), not
+derivatives of GMRES's iterations.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 from typing import Callable, NamedTuple
 
@@ -35,9 +40,11 @@ class SCFOptions(NamedTuple):
     diis_size: int = 10
     diis_start: int = 1
     damping: float = 0.0        # simple mixing fraction of old Fock
-    method: str = "diis"        # "diis"; "variational" is not ported yet
-    var_maxiter: int = 400      # (variational mode, not ported yet)
-    orb_param: str = "matexp"   # (variational mode, not ported yet)
+    method: str = "diis"        # "diis" or "variational"
+    # variational mode: BFGS iterations, and the orbital parametrisation
+    # ("matexp", "qr" or "ov"; qccalc.SCF_QCCalc._variational_solver)
+    var_maxiter: int = 400
+    orb_param: str = "matexp"
     # mixed precision: accepted for parity of the options and ignored — the
     # f32 warm phase of the JAX package pays for f64 emulation on the TPU;
     # the card has f64 arithmetic in hardware
@@ -241,27 +248,30 @@ class _Slot:
         self.i = i
 
 
+def _take(t, leaves):
+    if isinstance(t, dict):
+        return {k: _take(v, leaves) for k, v in t.items()}
+    if isinstance(t, torch.Tensor) and t.is_floating_point():
+        leaves.append(t)
+        return _Slot(len(leaves) - 1)
+    return t
+
+
+def _rebuild(spec, ls):
+    if isinstance(spec, dict):
+        return {k: _rebuild(v, ls) for k, v in spec.items()}
+    return ls[spec.i] if isinstance(spec, _Slot) else spec
+
+
 def _flatten(tree):
     """(floating tensor leaves, rebuild) of a nested dict: rebuild(leaves)
     gives the dict back with those leaves; everything else (bool masks,
-    ints) stays in it as it is."""
+    ints) stays in it as it is. Module-level helpers, not recursive
+    closures: a closure that calls itself is a reference cycle, and would
+    keep what it holds until the cyclic garbage collector runs."""
     leaves = []
-
-    def take(t):
-        if isinstance(t, dict):
-            return {k: take(v) for k, v in t.items()}
-        if isinstance(t, torch.Tensor) and t.is_floating_point():
-            leaves.append(t)
-            return _Slot(len(leaves) - 1)
-        return t
-
-    spec = take(tree)
-
-    def rebuild(ls, t=spec):
-        if isinstance(t, dict):
-            return {k: rebuild(ls, v) for k, v in t.items()}
-        return ls[t.i] if isinstance(t, _Slot) else t
-    return leaves, rebuild
+    spec = _take(tree, leaves)
+    return leaves, functools.partial(_rebuild, spec)
 
 
 class _Problem(NamedTuple):
@@ -274,14 +284,26 @@ class _Problem(NamedTuple):
 
 
 def _step_graph(prob, x, leaves, needs=(), x_grad=True):
-    """(xd, theta leaves, step(xd, theta)): one graph of step at a detached
-    copy xd of x, reused by every product of a solve; the leaves require
-    grad where `needs` says so, else they are held fixed, and xd where
-    x_grad does (else no backward computes an x cotangent: the kernels'
-    dm cotangents are launches)."""
+    """(xd, theta leaves, step(xd, theta)): one graph of step at stand-ins
+    for x and theta's leaves, reused by every product of a solve. Outside a
+    graph-building backward a stand-in is a detached copy (a leaf requires
+    grad where `needs` says so, xd where x_grad does: else no backward
+    computes an x cotangent, and the kernels' dm cotangents are launches).
+    Inside one (grad mode on: the backward of a higher derivative is being
+    recorded), the stand-in of a tensor that requires grad is a view of it,
+    so what is formed here stays differentiable in x and theta at the next
+    order. Either way autograd.grad in a stand-in is a partial derivative:
+    the fixed point's own path from theta to x does not pass through it."""
+    create = torch.is_grad_enabled()
+
+    def stand_in(t, grad):
+        if create and t.requires_grad:
+            return t.view_as(t)
+        return t.detach().requires_grad_(bool(grad))
+
     with torch.enable_grad():
-        xd = x.detach().requires_grad_(x_grad)
-        ls = [t.detach().requires_grad_(bool(n))
+        xd = stand_in(x, x_grad)
+        ls = [stand_in(t, n)
               for t, n in zip(leaves, list(needs) + [False] * len(leaves))]
         y = prob.step(xd, prob.rebuild(ls))
     return xd, ls, y
@@ -332,79 +354,65 @@ def _solve(matvec, b, stats, what):
     return (x * bn).reshape(b.shape)
 
 
-class _AdjointSolve(torch.autograd.Function):
-    """lam = (I - J^T)^{-1} b, J = d step/dx at (x, theta). Its backward is
-    the untransposed solve mu = (I - J)^{-1} lambar: bbar = mu, and the
-    cotangents of x and theta are d/d(x, theta) <mu, J^T lam> with mu and
-    lam held (dlam = (I - J^T)^{-1} (db + dJ^T lam)). Exact to second
-    order, which is what a Hessian-vector product needs."""
+def _pairing(prob, p, q, x, leaves, needs):
+    """d/d(x, theta) <q, J^T p>, J = d step/dx at (x, theta), for x
+    (needs[0]) and the leaves that needs[1:] marks (None elsewhere), p and
+    q held. Inside a graph-building backward the result keeps its graph in
+    p, q, x and theta."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
+        xd, ls, y = _step_graph(prob, x, leaves, needs[1:])
+        (jtp,) = torch.autograd.grad(y, xd, p, create_graph=True)
+        wanted = [xd] + [t for t, n in zip(ls, needs[1:]) if n]
+        grads = list(torch.autograd.grad((jtp * q).sum(), wanted,
+                                         allow_unused=True,
+                                         create_graph=create))
+    x_bar = grads.pop(0)
+    return ((x_bar if needs[0] else None),
+            *(grads.pop(0) if n else None for n in needs[1:]))
+
+
+class _LinSolve(torch.autograd.Function):
+    """z = (I - A)^{-1} b at (x, theta), A = J^T (transpose) or J, with
+    J = d step/dx. Its backward is the other solve, w = (I - A^T)^{-1} zbar
+    (= bbar), and the cotangents of x and theta are d/d(x, theta) <w, A z>
+    with w and z held (dz = (I - A)^{-1} (db + dA z)). The backward is
+    itself made of this Function and of autograd of step, so a derivative
+    of any order is exact at the fixed point."""
 
     @staticmethod
-    def forward(ctx, prob, b, x, *leaves):
+    def forward(ctx, prob, transpose, b, x, *leaves):
         xd, _, y = _step_graph(prob, x, leaves)
-        jt = _vjp_map(xd, y)
-        lam = _solve(lambda v: v - jt(v), b, prob.stats, "adjoint")
-        ctx.prob = prob
-        ctx.save_for_backward(lam, x, *leaves)
-        return lam
+        mv = _vjp_map(xd, y) if transpose else _jvp_map(xd, y)
+        z = _solve(lambda v: v - mv(v), b, prob.stats,
+                   "adjoint" if transpose else "transposed")
+        ctx.prob, ctx.transpose = prob, transpose
+        ctx.save_for_backward(z, x, *leaves)
+        return z
 
     @staticmethod
-    def backward(ctx, lam_bar):
-        prob = ctx.prob
-        lam, x, *leaves = ctx.saved_tensors
-        needs = ctx.needs_input_grad[3:]
-        xd, ls, y = _step_graph(prob, x, leaves, needs)
-        jv = _jvp_map(xd, y)
-        mu = _solve(lambda v: v - jv(v), lam_bar, prob.stats, "transposed")
-        with torch.enable_grad():
-            (jtl,) = torch.autograd.grad(y, xd, lam.detach(),
-                                         create_graph=True)
-            wanted = [xd] + [t for t, n in zip(ls, needs) if n]
-            grads = list(torch.autograd.grad(
-                (jtl * mu.detach()).sum(), wanted, allow_unused=True))
-        x_bar = grads.pop(0) if ctx.needs_input_grad[2] else None
-        return (None, mu, x_bar,
-                *(grads.pop(0) if n else None for n in needs))
+    def backward(ctx, z_bar):
+        prob, transpose = ctx.prob, ctx.transpose
+        z, x, *leaves = ctx.saved_tensors
+        w = _LinSolve.apply(prob, not transpose, z_bar.contiguous(), x,
+                            *leaves)
+        # <w, J^T z> for A = J^T; <w, J z> = <z, J^T w> for A = J
+        p, q = (z, w) if transpose else (w, z)
+        grads = _pairing(prob, p, q, x, leaves, ctx.needs_input_grad[3:])
+        return (None, None, w, *grads)
 
 
-class _StepVJP(torch.autograd.Function):
+def _theta_vjp(prob, lam, x, leaves, needs):
     """(d step/d theta)^T lam at (x, theta) for the leaves that `needs`
-    marks, as a function of (lam, x, theta). Its backward differentiates
-    that product once more, on a graph of its own: a backward that kept
-    the graph of step at the saved x would run into the fixed point's
-    own backward again."""
-
-    @staticmethod
-    def forward(ctx, prob, needs, lam, x, *leaves):
-        ctx.prob, ctx.needs = prob, needs
-        ctx.save_for_backward(lam, x, *leaves)
+    marks (None elsewhere); inside a graph-building backward it keeps its
+    graph in lam, x and theta."""
+    create = torch.is_grad_enabled()
+    with torch.enable_grad():
         _, ls, y = _step_graph(prob, x, leaves, needs, x_grad=False)
         want = [t for t, n in zip(ls, needs) if n]
-        with torch.enable_grad():
-            g = torch.autograd.grad(y, want, lam.detach(), allow_unused=True)
-        return tuple(torch.zeros_like(t) if gi is None else gi
-                     for t, gi in zip(want, g))
-
-    @staticmethod
-    def backward(ctx, *gbar):
-        prob, needs = ctx.prob, ctx.needs
-        lam, x, *leaves = ctx.saved_tensors
-        with torch.enable_grad():
-            ld = lam.detach().requires_grad_(True)
-            xd, ls, y = _step_graph(prob, x, leaves,
-                                    [n or m for n, m in zip(
-                                        needs, ctx.needs_input_grad[4:])])
-            want = [t for t, n in zip(ls, needs) if n]
-            g = torch.autograd.grad(y, want, ld, create_graph=True,
-                                    allow_unused=True)
-            dot = sum((gi * gb).sum() for gi, gb in zip(g, gbar)
-                      if gi is not None)
-            live = [t for t in ls if t.requires_grad]
-            d = iter(torch.autograd.grad(dot, [ld, xd] + live,
-                                         allow_unused=True))
-        lam_bar, x_bar = next(d), next(d)
-        return (None, None, lam_bar, x_bar,
-                *(next(d) if t.requires_grad else None for t in ls))
+        g = list(torch.autograd.grad(y, want, lam, allow_unused=True,
+                                     create_graph=create))
+    return [(g.pop(0) if n else None) for n in needs]
 
 
 class _ImplicitFixedPoint(torch.autograd.Function):
@@ -422,16 +430,16 @@ class _ImplicitFixedPoint(torch.autograd.Function):
         prob = ctx.prob
         x, *leaves = ctx.saved_tensors
         needs = ctx.needs_input_grad[2:]
-        lam = _AdjointSolve.apply(prob, x_bar, x, *leaves)
-        grads = list(_StepVJP.apply(prob, needs, lam, x, *leaves)
-                     if any(needs) else ())
-        return (None, None, *(grads.pop(0) if n else None for n in needs))
+        if not any(needs):
+            return (None, None, *(None for _ in needs))
+        lam = _LinSolve.apply(prob, True, x_bar.contiguous(), x, *leaves)
+        return (None, None, *_theta_vjp(prob, lam, x, leaves, needs))
 
 
 def implicit_fixed_point(step: Callable, solver: Callable, theta: dict, x0,
                          stats: list = None):
     """x* with x* = step(x*, theta), differentiable in theta by the implicit
-    function theorem (exact at convergence, to second order).
+    function theorem (exact at convergence, to any order).
 
     step: (x, theta) -> x, written in torch ops (every kernel on its path
     has a derivative rule). solver: (theta, x0) -> x*, any algorithm whose

@@ -2,10 +2,11 @@
 dqc_tpu/scf/qccalc.py).
 
 HF(mol).run() -> qc; KS(mol, xc="b3lyp").run() -> qc; qc.energy(),
-qc.aodm(), qc.dm2energy(dm); derivatives: qc.energy_grad() (dE/dparams;
-forces are -g["basis"]["atompos"]) and the differentiable
-qc.solve_dm(params) and qc.energy_fn(params); qc.energy_hvp(v), a
-Hessian-vector product by double backward.
+qc.aodm(), qc.dm2energy(dm), qc.dm2dens(coords); derivatives:
+qc.energy_grad() (dE/dparams; forces are -g["basis"]["atompos"]) and the
+differentiable qc.solve_dm(params) and qc.energy_fn(params), to any order
+(api/properties.py builds Hessians and third derivatives on them);
+qc.energy_hvp(v), a Hessian-vector product by double backward.
 
 The JAX package has two routes through run(): one compiled solver for small
 systems and a host-driven ladder of f32 and f64 phases for large ones, made
@@ -26,8 +27,11 @@ on an RI fit in the autoaux basis first, then polishes with exact J/K at RI
 cost (_stream_solve), as the JAX package's host-driven solver does. Above
 GUESS_NAO the SCF starts from the superposition of atomic densities
 (sad_dm0), as in the JAX package; each atom takes the route its size
-gives it.
-Periodic systems and the variational mode are not ported yet.
+gives it. HF/KS(variational=True), or SCFOptions(method="variational"),
+minimise the energy over orbital rotations by BFGS instead of DIIS
+(_variational_solver). A molecule's grid-tabulated external potential
+(Mol(vext=...)) is added to hcore on every route. Periodic systems are not
+ported yet.
 
 Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
 params in the autograd graph (one-electron integrals, the in-graph
@@ -50,25 +54,33 @@ import numpy as np
 import torch
 
 from ..basis.autoaux import autoaux
+from ..ops.aoeval import eval_ao
 from ..ops.eri import eri_dense, screened_pair_classes
 from ..ops.shellstruct import nsph, pack_basis
 from ..utils.config import config
 from ..utils.datastruct import SpinParam
 from ..utils.logger import log
+from ..utils.optimize import minimize_bfgs
 from ..xc import get_xc
 from ..xc.custom import CustomXC
-from ..xc.integrate import setup_grid_theta
+from ..xc.integrate import (_detached, density_from_tables,
+                             setup_grid_theta, vext_matrix)
 from .df import build_df_theta
 from .engine import HFEngine, KSEngine
 from .fixed_point import SCFOptions, diis_solve, implicit_fixed_point
 from .hamilton import build_core_theta
 from .jk import (build_jk_blocks, build_jk_factors, build_jk_meta,
                  factors_to_theta, jk_blocks_nbytes, jk_combos)
+from .orth import LARGE
 
 # at and above this nao the SCF starts from the Fock matrix of the SAD
 # density (guess="sad", the default) or the GWH Fock (guess="gwh"); below it
 # from the core guess, as the JAX package's two routes do
 GUESS_NAO = 96
+# the variational solver's BFGS stops at this max |dE/dparams| (the JAX
+# package's gtol, dqc_tpu/scf/qccalc.py:245)
+VAR_GTOL = 1e-9
+ORB_PARAMS = ("matexp", "qr", "ov")
 
 
 def _occ_array(mol, polarized):
@@ -118,7 +130,10 @@ class SCF_QCCalc:
 
     def _all_params(self):
         """The differentiable inputs: basis params (atompos among them),
-        atomzs, and the fields the molecule has."""
+        atomzs, the fields the molecule has and its external potential.
+        Unlike the JAX package's, the zero fields are not carried by
+        default (forward runs would pay for their multipole integrals);
+        api/properties.py adds those it differentiates."""
         mol = self.mol
         p = {"basis": mol.params, "atomzs": mol.atomzs}
         if mol.efield is not None or mol.efield_grad is not None:
@@ -129,6 +144,8 @@ class SCF_QCCalc:
                                 else mol._t(mol.efield_grad))
         if mol.efield_grad2 is not None:
             p["efield_grad2"] = mol._t(mol.efield_grad2)
+        if mol.vext is not None:
+            p["vext"] = mol._t(mol.vext)
         if getattr(self, "_xc_params", None) is not None:
             p["xc_params"] = self._xc_params
         return p
@@ -179,11 +196,11 @@ class SCF_QCCalc:
 
     def _solver(self, theta, dm0=None):
         """The converged dm of theta: DIIS from the Fock matrix of dm0, or
-        from _start_fock without one."""
+        from _start_fock without one; the variational solver for
+        method="variational"."""
         eng, opts = self.engine, self.opts
-        if opts.method != "diis":
-            raise NotImplementedError(
-                f"not ported yet: SCF method {opts.method!r} (ROADMAP A13)")
+        if opts.method == "variational":
+            return self._variational_solver(theta, dm0)
         if "jk_facs" in theta:
             return self._stream_solve(theta, dm0)
         f0 = self._start_fock(theta) if dm0 is None else eng.fock(dm0, theta)
@@ -196,6 +213,91 @@ class SCF_QCCalc:
         self.stats.update(iterations=n_iter, residual=best_err,
                           residual_history=errh)
         return eng.dm_from_fock(f_star, theta)
+
+    def _variational_solver(self, theta, dm0=None):
+        """Direct minimisation of the energy over orbital rotations, the JAX
+        package's _variational_solver (dqc_tpu/scf/qccalc.py:136-246):
+        dm = C occ C^T with the orbitals C(params) of one of three
+        parametrisations (opts.orb_param), by BFGS (utils/optimize; max
+        |gradient| <= VAR_GTOL or opts.var_maxiter iterations). The start
+        orbitals C0 = X U0 are those of the start Fock (_start_fock, as
+        the DIIS starts, or F(dm0)):
+          matexp: C = C0 expm((K - K^T)/2), K over all (n, n) entries;
+          qr: C = X Q, Q R = P with diag(R) > 0 (QR orthonormalises in the
+              orthogonal basis), P starting at U0;
+          ov: C = C0 expm(K - K^T), K only in the occupied x virtual block
+              (nocc * nvirt parameters per spin; integer occupations).
+        Never differentiated: solve_dm differentiates its result through
+        implicit_fixed_point, as for DIIS. stats: iterations (BFGS),
+        var_evaluations, var_status, var_message, var_grad_max_abs, and
+        residual, the DIIS error of the result (one more Fock build)."""
+        eng, opts = self.engine, self.opts
+        if opts.orb_param not in ORB_PARAMS:
+            raise ValueError(f"unknown orb_param {opts.orb_param!r}; "
+                             f"one of {ORB_PARAMS}")
+        theta = _detached(theta)
+        f0 = self._start_fock(theta) if dm0 is None else eng.fock(dm0, theta)
+        X, occ = theta["X"], theta["occ"]
+        pin = torch.where(theta["keep"], torch.zeros_like(X[0]),
+                          torch.full_like(X[0], LARGE))
+        _, u0 = torch.linalg.eigh(
+            torch.einsum("im,...ij,jn->...mn", X, f0, X) + torch.diag(pin))
+        c0 = torch.einsum("ij,...jk->...ik", X, u0)
+        n = c0.shape[-1]
+        shape = tuple(c0.shape)
+
+        def density(c):
+            return (c * occ[..., None, :]) @ c.transpose(-1, -2)
+
+        if opts.orb_param == "matexp":
+            def dm_of(k):
+                k = k.reshape(shape)
+                return density(c0 @ torch.linalg.matrix_exp(
+                    0.5 * (k - k.transpose(-1, -2))))
+            k0 = torch.zeros(c0.numel(), dtype=c0.dtype, device=c0.device)
+        elif opts.orb_param == "qr":
+            def dm_of(p):
+                q, r = torch.linalg.qr(p.reshape(shape))
+                s = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
+                s = torch.where(s == 0, torch.ones_like(s), s)
+                return density(torch.einsum("ij,...jk->...ik", X,
+                                            q * s[..., None, :]))
+            k0 = u0.reshape(-1)
+        else:
+            occ2 = occ.reshape(-1, n).cpu().numpy()
+            fmax = occ2.max(axis=-1, keepdims=True)
+            if not np.all((occ2 == 0) | (occ2 == fmax)):
+                raise ValueError(
+                    "orb_param='ov' needs integer aufbau occupations; use "
+                    "'matexp' for fractional occupations")
+            blocks = [(torch.as_tensor(np.flatnonzero(o > 0),
+                                       device=c0.device),
+                       torch.as_tensor(np.flatnonzero(o == 0),
+                                       device=c0.device)) for o in occ2]
+            sizes = [len(io) * len(iv) for io, iv in blocks]
+            c0s = c0.reshape(-1, n, n)
+
+            def dm_of(k):
+                cs, off = [], 0
+                for (io, iv), size, c in zip(blocks, sizes, c0s):
+                    pm = torch.zeros((n, n), dtype=k.dtype, device=k.device)
+                    pm[io[:, None], iv[None, :]] = \
+                        k[off:off + size].reshape(len(io), len(iv))
+                    off += size
+                    cs.append(c @ torch.linalg.matrix_exp(pm - pm.T))
+                return density(torch.stack(cs).reshape(shape))
+            k0 = torch.zeros(sum(sizes), dtype=c0.dtype, device=c0.device)
+        x, info = minimize_bfgs(lambda k: eng.energy(dm_of(k), theta), k0,
+                                opts.var_maxiter, VAR_GTOL)
+        dm = dm_of(x)
+        err = float(torch.max(torch.abs(
+            eng.diis_err(eng.fock(dm, theta), dm, theta))))
+        self.stats.update(iterations=info["iterations"], residual=err,
+                          var_evaluations=info["evaluations"],
+                          var_status=info["status"],
+                          var_message=info["message"],
+                          var_grad_max_abs=info["grad_max_abs"])
+        return dm
 
     def _step_and_err(self, theta, corr=None):
         """fock -> (F(dm(fock)), DIIS error) on theta; `corr` = (dJ, dK) is
@@ -329,10 +431,29 @@ class SCF_QCCalc:
             self._theta = self._build_theta(self._all_params())
         return self.engine.energy(dm, self._theta)
 
+    def dm2dens(self, coords, dm=None):
+        """Electron density at points coords (nr, 3), in Bohr, on the
+        molecule's device: (nr,) for a restricted dm, SpinParam of the up
+        and down densities for a polarized one; dm defaults to the
+        converged density (the JAX package's dm2dens,
+        dqc_tpu/scf/qccalc.py:1278-1296)."""
+        if dm is None:
+            assert self._has_run, "call .run() first or pass dm"
+            dm = self._dm
+        if isinstance(dm, SpinParam):
+            dm = torch.stack([dm.u, dm.d], dim=0)
+        mol = self.mol
+        tabs = eval_ao(mol.meta, self._all_params()["basis"], mol._t(coords))
+        pol = dm.ndim == 3
+        dens = density_from_tables(tabs, dm, family=1, polarized=pol)
+        if pol:
+            return SpinParam(u=dens["u"]["rho"], d=dens["d"]["rho"])
+        return dens["rho"]
+
     # --- derivatives -----------------------------------------------------
     def solve_dm(self, params):
         """params -> (converged dm, theta), differentiable in params to
-        second order: theta is built in the graph and dm is the implicit
+        any order: theta is built in the graph and dm is the implicit
         fixed point of engine.step, started from the dm of run() when
         there is one. GMRES records of the backward go to
         stats['gmres']."""
@@ -348,21 +469,31 @@ class SCF_QCCalc:
         dm, theta = self.solve_dm(params)
         return self.engine.energy(dm, theta)
 
-    def _leaves(self, params):
-        """params with every floating tensor replaced by a detached copy
-        that requires grad, and the list of those copies."""
+    def _leaves(self, params, wrt=None):
+        """params with floating tensors replaced by detached copies that
+        require grad, and the list of those copies: every floating tensor,
+        or with `wrt` (key paths such as ("efield",) or ("basis",
+        "atompos")) only those under one of the paths, the rest left as
+        they are. A property that differentiates the fields alone so
+        builds no cotangent of the basis parameters or of the ERI
+        tensors."""
         leaves = []
+        wrt = None if wrt is None else [tuple(w) for w in wrt]
 
-        def take(t):
+        def take(t, path):
             if isinstance(t, dict):
-                return {k: take(v) for k, v in t.items()}
+                return {k: take(v, path + (k,)) for k, v in t.items()}
             if isinstance(t, (list, tuple)):
-                return type(t)(take(v) for v in t)
-            if isinstance(t, torch.Tensor) and t.is_floating_point():
+                return type(t)(take(v, path) for v in t)
+            if (isinstance(t, torch.Tensor) and t.is_floating_point()
+                    and (wrt is None
+                         or any(path[:len(w)] == w for w in wrt))):
                 leaves.append(t.detach().requires_grad_(True))
                 return leaves[-1]
             return t
-        return take(params), leaves
+        out = take(params, ())
+        del take     # a self-referencing closure: no cycle holds leaves
+        return out, leaves
 
     def _like(self, params, values):
         """The structure of params with its floating tensors replaced, in
@@ -378,7 +509,9 @@ class SCF_QCCalc:
                 g = next(it)
                 return torch.zeros_like(t) if g is None else g
             return t
-        return put(params)
+        out = put(params)
+        del put      # a self-referencing closure: no cycle holds values
+        return out
 
     def energy_grad(self, params=None):
         """dE/dparams as a dict shaped like params (default
@@ -443,7 +576,19 @@ def _floats(tree):
     return []
 
 
-def _route(mol, variational, opts, what, n_lr: int = 0):
+def _options(variational, opts):
+    """The SCF options of HF/KS: variational=True asks for the variational
+    solver whatever opts says otherwise."""
+    opts = opts or SCFOptions()
+    if variational:
+        opts = opts._replace(method="variational")
+    if opts.method not in ("diis", "variational"):
+        raise ValueError(f"unknown SCF method {opts.method!r}; 'diis' or "
+                         "'variational'")
+    return opts
+
+
+def _route(mol, opts, what, n_lr: int = 0):
     """(mode, jk_info) of a molecule: 'df' with densityfit(); else 'dense'
     while its 1 + n_lr dense nao^4 tensors (eri_k and the attenuated ones of
     a range-separated hybrid) fit config.DENSE_ERI_BYTES_LIMIT together;
@@ -456,10 +601,7 @@ def _route(mol, variational, opts, what, n_lr: int = 0):
     if hasattr(mol, "lattice"):
         raise NotImplementedError(
             f"not ported yet: periodic {what} (ROADMAP A14)")
-    if variational or (opts is not None and opts.method != "diis"):
-        raise NotImplementedError(
-            "not ported yet: the variational SCF mode (ROADMAP A13)")
-    if opts is not None and opts.guess not in ("sad", "gwh"):
+    if opts.guess not in ("sad", "gwh"):
         raise ValueError(f"unknown initial guess {opts.guess!r}")
     if mol.dfinfo is not None:
         return "df", None
@@ -508,7 +650,8 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
                  omegas=(), dfset=None, mode="dense", jk_info=None,
                  warm=None):
     """theta of a route (`mode`, from _route): one-electron integrals and
-    occupations; eri_k (dense), the fit df (DF), the weighted canonical
+    occupations (hcore with the external potential of params['vext']);
+    eri_k (dense), the fit df (DF), the weighted canonical
     blocks jkb0, jkb1, ... of scf/jk.py (blocked), or the pair groups'
     Hermite factors jk_facs and the RI fit warm_df in the autoaux basis
     `warm`, built without a graph (stream); for KS the grid tables and the
@@ -537,6 +680,11 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
                              efield_grad=params.get("efield_grad"),
                              efield_grad2=params.get("efield_grad2"),
                              with_eri=False)
+    if "vext" in params:
+        # the external potential on the molecule's grid (built on first use
+        # for HF), as in the JAX package's HF and KS part_core
+        theta["hcore"] = theta["hcore"] + vext_matrix(
+            mol.meta, params["basis"], mol.setup_grid(), params["vext"])
     sync()
     t1 = time.perf_counter()
     times = {"int1e_s": t1 - t0, "jk_mode": mode}
@@ -619,7 +767,8 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
     (_route, scf/jk.py). A molecule with densityfit() takes the DF route:
     RI-J and RI-K from the fit of scf/df.py, no nao^4 tensor, no size
     limit."""
-    mode, jk_info = _route(mol, variational, opts, "Hartree-Fock")
+    opts = _options(variational, opts)
+    mode, jk_info = _route(mol, opts, "Hartree-Fock")
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     dfset = _df_setup(mol)
@@ -630,8 +779,7 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
                            jk_info=jk_info, warm=warm)
 
     return SCF_QCCalc(mol, HFEngine(polarized=polarized, jk_info=jk_info),
-                      build_theta=build_theta, opts=opts or SCFOptions(),
-                      jk_mode=mode)
+                      build_theta=build_theta, opts=opts, jk_mode=mode)
 
 
 def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
@@ -653,8 +801,8 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
     GGA or meta-GGA. A CustomXC's parameters are differentiable inputs:
     energy_grad()['xc_params']."""
     xc = get_xc(xc)
-    mode, jk_info = _route(mol, variational, opts, "Kohn-Sham",
-                           n_lr=len(xc.exx_lr))
+    opts = _options(variational, opts)
+    mode, jk_info = _route(mol, opts, "Kohn-Sham", n_lr=len(xc.exx_lr))
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     grid = mol.setup_grid()
@@ -669,8 +817,7 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
 
     calc = SCF_QCCalc(mol, KSEngine(xc, polarized=polarized,
                                     jk_info=jk_info),
-                      build_theta=build_theta, opts=opts or SCFOptions(),
-                      jk_mode=mode)
+                      build_theta=build_theta, opts=opts, jk_mode=mode)
     # the NN parameters of a CustomXC are differentiable inputs
     if isinstance(xc, CustomXC):
         calc._xc_params = {xc.key: xc.init_params}

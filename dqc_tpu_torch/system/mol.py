@@ -3,9 +3,10 @@
 Mol is built on the host. It produces (meta, params) — the static shell
 metadata and the dict of differentiable tensors — plus occupation vectors;
 all physics downstream is plain functions of params. `densityfit()` marks
-the molecule for the density-fitted route of HF/KS (mol.dfinfo). The on-disk
-cache and grid-tabulated external potentials are not ported yet and raise
-NotImplementedError here.
+the molecule for the density-fitted route of HF/KS (mol.dfinfo); `vext`, a
+potential tabulated on the molecule's grid (mol.setup_grid(), one value per
+point), is added to the core Hamiltonian. The on-disk cache is not ported
+yet and raises NotImplementedError here.
 """
 from __future__ import annotations
 
@@ -70,6 +71,11 @@ class Mol:
     charge: total charge; may be fractional
     orb_weights: optional occupation override — SpinParam of (nao,) tensors
     (polarized) or a (nao,) tensor (restricted)
+    efield, efield_grad, efield_grad2: optional uniform field (3,), field
+    gradient (3, 3) and second field gradient (3, 3, 3) coupled to the
+    electrons
+    vext: optional external potential (ng,) on the points of the molecule's
+    grid (setup_grid()), in Hartree, added to the core Hamiltonian
     device: None means the CUDA card (RuntimeError without one); pass "cpu"
     to run on the CPU.
     """
@@ -88,10 +94,6 @@ class Mol:
                  device=None):
         if dtype != DTYPE:
             raise ValueError("dqc_tpu_torch computes in torch.float64 only")
-        if vext is not None:
-            raise NotImplementedError(
-                "not ported yet: Mol(vext=...), the grid-tabulated external "
-                "potential (ROADMAP A13)")
         self.device = resolve_device(device)
         self.dtype = dtype
         self.atomzs, self.atompos = parse_moldesc(moldesc, device=self.device)
@@ -208,6 +210,28 @@ class Mol:
         if self._grid is None:
             self._grid = get_predefined_grid(self.grid_level, self.zs_int)
         return self._grid
+
+    def make_copy(self, **kwargs):
+        """A new Mol with some constructor arguments changed (geometry
+        scans and the like; the JAX package's make_copy,
+        dqc_tpu/system/mol.py:233-246): `atompos` replaces the positions,
+        any other keyword the argument of that name; the rest, the device
+        and the occupation override among them, carry over (the basis as
+        the resolved per-atom shells). densityfit() is not carried over."""
+        opts = dict(
+            moldesc=(self.atomzs,
+                     kwargs.pop("atompos", self.params["atompos"])),
+            basis=kwargs.pop("basis", None),
+            spin=self.spin, charge=self.charge,
+            orthogonalize_basis=self.orthogonalize_basis,
+            efield=self.efield, efield_grad=self.efield_grad,
+            efield_grad2=self.efield_grad2, vext=self.vext,
+            orb_weights=self._orb_weights, grid=self.grid_level,
+            device=self.device)
+        if opts["basis"] is None:
+            opts["basis"] = [ab.bases for ab in self.atombases]
+        opts.update(kwargs)
+        return Mol(opts.pop("moldesc"), **opts)
 
     def get_nuclei_energy(self):
         from ..scf.hamilton import nuclear_repulsion

@@ -1,12 +1,12 @@
 """Core data structures: SpinParam and the basis containers.
 
 Counterpart of dqc_tpu/utils/datastruct.py. Plain dataclasses: PyTorch needs
-no pytree registration. ValGrad comes with the property API (ROADMAP A13).
+no pytree registration.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Generic, List, Sequence, TypeVar, Union
+from typing import Callable, Generic, List, Optional, Sequence, TypeVar, Union
 
 import numpy as np
 
@@ -39,6 +39,45 @@ class SpinParam(Generic[T]):
     @staticmethod
     def sum_if(x):
         return x.sum() if isinstance(x, SpinParam) else x
+
+
+@dataclass
+class ValGrad:
+    """Density information at grid points (the JAX package's ValGrad,
+    dqc_tpu/utils/datastruct.py:61-100).
+
+    value: the density n(r), (*B, nr)
+    grad: its gradient (d/dx, d/dy, d/dz), (*B, 3, nr), or None
+    lapl: its Laplacian, (*B, nr), or None
+    kin: the kinetic energy density tau, (*B, nr), or None
+
+    `+` adds two of them component by component (both or neither must have
+    each component); `*` scales every component by a factor."""
+    value: object
+    grad: Optional[object] = None
+    lapl: Optional[object] = None
+    kin: Optional[object] = None
+
+    def __add__(self, other: "ValGrad") -> "ValGrad":
+        def add(x, y):
+            if x is None and y is None:
+                return None
+            if x is None or y is None:
+                raise ValueError(
+                    "Cannot add ValGrad with mismatched components")
+            return x + y
+        return ValGrad(value=self.value + other.value,
+                       grad=add(self.grad, other.grad),
+                       lapl=add(self.lapl, other.lapl),
+                       kin=add(self.kin, other.kin))
+
+    def __mul__(self, f):
+        return ValGrad(value=self.value * f,
+                       grad=None if self.grad is None else self.grad * f,
+                       lapl=None if self.lapl is None else self.lapl * f,
+                       kin=None if self.kin is None else self.kin * f)
+
+    __rmul__ = __mul__
 
 
 @dataclass

@@ -89,6 +89,18 @@ def setup_grid_theta(meta, params, grid, family: int = 1):
     return out
 
 
+def vext_matrix(meta, params, grid, vext):
+    """V_ext[i,j] = sum_g vext[g] dvol[g] phi_i(g) phi_j(g) of a potential
+    tabulated on the molecule's grid (ng,), added to hcore (the JAX
+    package's vext_matrix, an einsum outside any kernel there too).
+    Differentiable in vext, the basis parameters and the atom positions
+    (the grid moves with the atoms)."""
+    tabs = setup_grid_theta(meta, params, grid, family=1)
+    ao = tabs["ao"]
+    w = torch.as_tensor(vext, dtype=ao.dtype, device=ao.device) * tabs["dvol"]
+    return ao.T @ (w[:, None] * ao)
+
+
 def density_from_tables(tabs, dm, family: int, polarized: bool):
     """Densities at the grid points from the AO tables and dm. 'grad' is
     (3, ng); 'lapl' and 'tau' for the MGGA family. rho and grad of the GGA

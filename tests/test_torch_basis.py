@@ -216,11 +216,15 @@ def test_mol_probes_and_hooks_not_ported_yet():
     assert m.dfinfo is None
     assert m.densityfit() is m and m.dfinfo.method == "coulomb"
     assert m.setup_grid() is m.setup_grid()          # built once
-    with pytest.raises(NotImplementedError):
-        dqt.Mol(H2O, basis="sto-3g", device="cpu", vext=np.zeros(3))
-    for name in ("Sol", "hessian_pos", "edipole"):
+    # the grid-tabulated external potential is a differentiable input
+    ng = m.setup_grid().w0.shape[0]
+    mv = dqt.Mol(H2O, basis="sto-3g", device="cpu", vext=np.zeros(ng))
+    assert tuple(dqt.HF(mv)._all_params()["vext"].shape) == (ng,)
+    for name in ("Sol", "band_energies"):
         with pytest.raises(NotImplementedError, match="not ported yet"):
             getattr(dqt, name)
+    for name in ("hessian_pos", "edipole", "ValGrad"):
+        assert callable(getattr(dqt, name))
     with pytest.raises(AttributeError):
         dqt.no_such_name
     assert dqt.__version__ == dqc_tpu.__version__

@@ -446,3 +446,118 @@ def test_blocked_b3lyp_on_the_card_launches_k2_k3_and_no_k1(monkeypatch):
         j2, k2 = qc.engine.jk_parts(dm, qc._theta)
     assert torch.equal(j1, j2) and torch.equal(k1, k2)
     assert abs(float(qc.energy()) - float(dense.energy())) < 1e-10
+
+
+def _launches():
+    return (hopper_jk.ds_jk.launches, hopper_xc.ds_dens_gga.launches,
+            hopper_xc.ds_vxc_gga.launches)
+
+
+def _zero_launches():
+    hopper_jk.ds_jk.launches = 0
+    hopper_xc.ds_dens_gga.launches = hopper_xc.ds_vxc_gga.launches = 0
+
+
+H2O_CCCBDB = "O 0.0 0.0 0.2156; H 0.0 1.4749 -0.8625; H 0.0 -1.4749 -0.8625"
+
+
+def test_hf_properties_on_the_card_match_the_cpu():
+    """hessian_pos, polarizability, the dipole and the Raman activities
+    (a third derivative) of HF H2O/STO-3G on the card against the same
+    calls on the CPU, each to 1e-9 of its largest entry; K1 launches
+    inside the second- and third-order calls."""
+    _need_card()
+    from dqc_tpu_torch.api import properties as P
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mol = dqt.Mol(H2O_CCCBDB, basis="sto-3g", device=dev)
+        qc = dqt.HF(mol, opts=dqt.SCFOptions(tol=1e-11)).run()
+        res = {}
+        for name, fn in (("hessian", P.hessian_pos),
+                         ("alpha", P.polarizability), ("mu", P.edipole),
+                         ("raman", lambda q: P.raman_spectrum(q)[1][:3])):
+            _zero_launches()
+            res[name] = fn(qc).cpu()
+            if dev == "cuda" and name in ("hessian", "alpha", "raman"):
+                assert hopper_jk.ds_jk.launches > 0, name
+        out[dev] = res
+    for name, ref in out["cpu"].items():
+        err = (out["cuda"][name] - ref).abs().max().item()
+        assert err <= 1e-9 * ref.abs().max().item(), (name, err)
+
+
+def test_b3lyp_third_derivative_on_the_card_matches_the_cpu():
+    """dalpha/dR of B3LYP H2O/3-21G (grid 1): a third derivative through
+    the SCF whose backwards run K1-K3 on the card, against the CPU to 1e-9
+    of its largest entry."""
+    _need_card()
+    from dqc_tpu_torch.api import properties as P
+    out = {}
+    for dev in ("cuda", "cpu"):
+        mol = dqt.Mol(H2O, basis="3-21G", grid=1, device=dev)
+        qc = dqt.KS(mol, xc="b3lyp", opts=dqt.SCFOptions(tol=1e-11)).run()
+        _zero_launches()
+        out[dev] = P._dalpha_dpos(qc)[1].cpu()
+        if dev == "cuda":
+            assert all(n > 0 for n in _launches()), _launches()
+    err = (out["cuda"] - out["cpu"]).abs().max().item()
+    assert err <= 1e-9 * out["cpu"].abs().max().item()
+
+
+def test_variational_b3lyp_on_the_card_matches_diis():
+    """B3LYP H2O/3-21G (grid 1) by the variational solver ("ov") on the
+    card against the DIIS energy to 1e-9 Ha; K1-K3 launch in its energy
+    and gradient evaluations."""
+    _need_card()
+    mol = dqt.Mol(H2O, basis="3-21G", grid=1)
+    e_diis = float(dqt.KS(mol, xc="b3lyp").run().energy())
+    _zero_launches()
+    qc = dqt.KS(mol, xc="b3lyp", variational=True,
+                opts=dqt.SCFOptions(orb_param="ov")).run()
+    assert all(n > 0 for n in _launches()), _launches()
+    assert abs(float(qc.energy()) - e_diis) <= 1e-9
+
+
+def test_vext_and_dm2dens_on_the_card_match_the_cpu():
+    """HF H2/STO-3G with a seeded potential on its level-1 grid: the energy
+    on the card against the CPU to 1e-10 Ha, dm2dens at the grid points to
+    1e-12."""
+    _need_card()
+    desc = "H -0.7 0 0; H 0.7 0 0"
+    ng = dqt.Mol(desc, basis="sto-3g", grid=1,
+                 device="cpu").setup_grid().w0.shape[0]
+    v = 0.01 * np.random.default_rng(0).standard_normal(ng)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        mol = dqt.Mol(desc, basis="sto-3g", grid=1, vext=v, device=dev)
+        qc = dqt.HF(mol).run()
+        pts = integrate.setup_grid_theta(mol.meta, mol.params,
+                                         mol.setup_grid())["coords"]
+        res[dev] = (float(qc.energy()), qc.dm2dens(pts).cpu())
+    assert abs(res["cuda"][0] - res["cpu"][0]) <= 1e-10
+    assert (res["cuda"][1] - res["cpu"][1]).abs().max().item() <= 1e-12
+
+
+def test_first_gradient_on_the_card_frees_its_calc():
+    """As tests/test_torch_grad.py's CPU test, on the card: in a fresh
+    interpreter with the cyclic garbage collector off, the calc of the
+    first energy_grad is freed when the caller drops it."""
+    _need_card()
+    import os
+    import subprocess
+    import sys
+    code = "\n".join([
+        "import gc, weakref",
+        "gc.disable()",
+        "import dqc_tpu_torch as dq",
+        f"qc = dq.HF(dq.Mol({H2O!r}, basis='sto-3g'))",
+        "g = qc.energy_grad()",
+        "ref = weakref.ref(qc)",
+        "del qc, g",
+        "print('calc alive:', ref() is not None)"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root),
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "calc alive: False"

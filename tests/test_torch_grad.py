@@ -449,3 +449,47 @@ def test_energy_hvp_matches_finite_differences_of_energy_grad():
     fd = (gs[0] - gs[1]) / (2 * h)
     assert float((hv - fd).abs().max()) <= 1e-6
     assert float(fd.abs().max()) > 0.1
+
+
+def test_first_gradient_of_a_process_frees_its_calc():
+    """The first energy_grad of a fresh interpreter (no import done by an
+    earlier test) leaves nothing that holds its calc: with the cyclic
+    garbage collector off, a weak reference to an HF H2O/STO-3G calc on
+    the dense route is dead once the caller drops it. torch.utils.
+    checkpoint's first call imports torch._dynamo, whose import keeps a
+    frame cycle; made inside the gradient it held the caller's frames
+    (ops/eri.py makes it at import time). Nor does any gradient leave a
+    tensor to the cyclic collector: the HF one and a B3LYP one leave no
+    tensor in gc.garbage (self-referencing closures held the Hermite R
+    values of every ERI block and theta's leaves)."""
+    import os
+    import subprocess
+    import sys
+    code = "\n".join([
+        "import gc, weakref",
+        "gc.disable()",
+        "import dqc_tpu_torch as dq",
+        "mol = dq.Mol('O 0 0 0.2217; H 0 1.4309 -0.8867; "
+        "H 0 -1.4309 -0.8867', basis='sto-3g', device='cpu')",
+        "qc = dq.HF(mol)",
+        "g = qc.energy_grad()",
+        "assert qc.jk_mode == 'dense'",
+        "ref = weakref.ref(qc)",
+        "del qc, g",
+        "print('calc alive:', ref() is not None)",
+        "ks = dq.KS(dq.Mol((mol.atomzs, mol.atompos), basis='sto-3g', "
+        "grid=1, device='cpu'), xc='b3lyp')",
+        "g = ks.energy_grad()",
+        "del ks, g, mol",
+        "gc.set_debug(gc.DEBUG_SAVEALL)",
+        "gc.collect()",
+        "import torch",
+        "print('tensors in cycles:', sum(isinstance(o, torch.Tensor) "
+        "for o in gc.garbage))"])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root)
+    out = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    lines = out.stdout.strip().splitlines()
+    assert lines[-2:] == ["calc alive: False", "tensors in cycles: 0"]

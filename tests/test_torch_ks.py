@@ -146,8 +146,9 @@ def test_ks_of_an_lda_matches_jax_functional_energy():
 def test_ks_takes_meta_ggas_and_range_separation_on_the_dense_route(
         monkeypatch):
     """Meta-GGAs and range-separated hybrids build their theta (the grid's
-    ao_lapl, one attenuated eri_lr_k per omega); the variational mode and
-    the long-range K without its tensor raise, naming their items. Past the
+    ao_lapl, one attenuated eri_lr_k per omega); variational=True selects
+    the variational solver and an unknown SCF method raises; the long-range
+    K without its tensor raises, naming its item. Past the
     dense limit a functional takes the blocked route, and range separation
     whose tensors do not fit the dense route together raises, naming
     mol.densityfit()."""
@@ -158,8 +159,10 @@ def test_ks_takes_meta_ggas_and_range_separation_on_the_dense_route(
     assert not torch.equal(th["eri_lr_k0"], th["eri_k"])
     qc = dqt.KS(mol, xc="scan")
     assert "ao_lapl" in qc._build_theta(qc._all_params())["grid"]
-    with pytest.raises(NotImplementedError, match="A13"):
-        dqt.KS(mol, xc="pbe", variational=True)
+    assert dqt.KS(mol, xc="pbe", variational=True).opts.method == \
+        "variational"
+    with pytest.raises(ValueError, match="unknown SCF method"):
+        dqt.KS(mol, xc="pbe", opts=dqt.SCFOptions(method="newton"))
     # the long-range K needs its attenuated tensor in theta
     with pytest.raises(NotImplementedError, match="A14"):
         tengine.KSEngine(tgetxc.get_xc("camb3lyp"))._k_lr(

@@ -378,13 +378,15 @@ def test_field_couplings_enter_hcore():
 
 
 def test_routes_not_ported_yet_raise(monkeypatch):
-    """The variational mode raises, naming its item; past the dense limit HF
-    takes the blocked route, and the streamed one past the blocked limit."""
+    """The variational mode is taken (variational=True or the option) and an
+    unknown SCF method raises; past the dense limit HF takes the blocked
+    route, and the streamed one past the blocked limit."""
     mol = dqt.Mol(H2, basis="sto-3g", device="cpu")
-    with pytest.raises(NotImplementedError, match="A13"):
-        dqt.HF(mol, variational=True)
-    with pytest.raises(NotImplementedError, match="A13"):
-        dqt.HF(mol, opts=dqt.SCFOptions(method="variational"))
+    assert dqt.HF(mol, variational=True).opts.method == "variational"
+    assert dqt.HF(mol, opts=dqt.SCFOptions(
+        method="variational")).opts.method == "variational"
+    with pytest.raises(ValueError, match="unknown SCF method"):
+        dqt.HF(mol, opts=dqt.SCFOptions(method="newton"))
     monkeypatch.setattr(tqc.config, "DENSE_ERI_BYTES_LIMIT", 100)
     assert dqt.HF(mol).jk_mode == "blocked"
     monkeypatch.setattr(tqc.config, "BLOCKED_JK_BYTES_LIMIT", 0)

@@ -5,6 +5,7 @@
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py df_b3lyp df_camb3lyp
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
         df_b3lyp df_camb3lyp df_vitc
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py properties
 
 For each functional named on the command line, one JSON line: the energy
 of dqc_tpu.KS(benzene/def2-SVP, grid=2, xc, SCFOptions(mixed=False)) (the
@@ -18,6 +19,20 @@ the generated autoaux basis (chip_smoke.py's df_b3lyp and df_cam_b3lyp
 phases); the line then also has naux. "df_vitc" is the workload of
 benchmarks/vitamin_c.py (vitamin C/cc-pVDZ, grid 2, densityfit(),
 lda_x+lda_c_pw).
+
+"properties" runs the property API of dqc_tpu.api.properties (one JSON
+line per system, each property as a list): H2O HF/3-21G at the CCCBDB
+geometry of tests/test_properties.py (chip_smoke.py's props_h2o_hf) and
+H2O HF/STO-3G at the same geometry (tests/test_torch_properties.py), all
+of hessian_pos, vibration, ir_spectrum, raman_spectrum, edipole,
+equadrupole, eoctupole, polarizability and lowest_eival_orb_hessian;
+H2 HF/3-21G's optimal_geometry from a 1.3 Bohr start; B3LYP H2/3-21G grid
+1's polarizability; and the variational energies (matexp, qr, ov) of HF
+H2/3-21G and of the H atom (spin 1, ov) beside their DIIS energies
+(tests/test_torch_variational.py). SCFOptions(mixed=False, tol=1e-11).
+The names props_h2o_321g, props_h2o_sto3g and props_small run one part
+each. Takes tens of minutes on one core, most of it the Raman
+spectrum's compile.
 
 --factored: the JAX package's fit is contracted in factored form. Its
 build_df_theta returns j3c and v_inv = j2c^+ (eigh pseudo-inverse above
@@ -125,11 +140,99 @@ H -2.0785 -1.6104 -2.6430; H 0.0074 5.0941 1.2812;
 H -8.6971 -1.4445 0.0486; H 6.6186 -0.4860 -1.4846"""
 
 
+H2O_CCCBDB = "O 0.0 0.0 0.2156; H 0.0 1.4749 -0.8625; H 0.0 -1.4749 -0.8625"
+PROPS_OPTS = dict(mixed=False, tol=1e-11)
+
+
+def _timed(rec, key, fn):
+    t0 = time.perf_counter()
+    out = fn()
+    rec[key + "_s"] = time.perf_counter() - t0
+    return out
+
+
+def _lists(x):
+    return np.asarray(x).tolist()
+
+
+def props_h2o(basis):
+    """Every property of dqc_tpu.api.properties on HF H2O in `basis`."""
+    from dqc_tpu.api import properties as P
+    rec = {"system": "H2O (CCCBDB geometry)", "basis": basis,
+           "method": "HF", "moldesc": H2O_CCCBDB, "opts": PROPS_OPTS}
+    mol = dqc_tpu.Mol(H2O_CCCBDB, basis=basis)
+    qc = _timed(rec, "scf", lambda: dqc_tpu.HF(
+        mol, opts=JOptions(**PROPS_OPTS)).run())
+    rec["energy_ha"] = float(qc.energy())
+    rec["hessian_pos"] = _lists(_timed(rec, "hessian_pos",
+                                       lambda: P.hessian_pos(qc)))
+    freqs, modes = P.vibration(qc)
+    rec["freqs_cm1"] = _lists(freqs)
+    rec["modes"] = _lists(modes)
+    rec["ir_km_mol"] = _lists(_timed(rec, "ir", lambda: P.ir_spectrum(qc))[1])
+    rec["raman_angst4_amu"] = _lists(
+        _timed(rec, "raman", lambda: P.raman_spectrum(qc))[1])
+    rec["edipole_au"] = _lists(_timed(rec, "edipole", lambda: P.edipole(qc)))
+    rec["equadrupole_au"] = _lists(
+        _timed(rec, "equadrupole", lambda: P.equadrupole(qc)))
+    rec["eoctupole_au"] = _lists(
+        _timed(rec, "eoctupole", lambda: P.eoctupole(qc)))
+    rec["polarizability_au"] = _lists(
+        _timed(rec, "polarizability", lambda: P.polarizability(qc)))
+    rec["lowest_eival_orb_hessian"] = float(_timed(
+        rec, "orb_hessian", lambda: P.lowest_eival_orb_hessian(qc)))
+    rec["backend"] = jax.default_backend()
+    print(json.dumps(rec), flush=True)
+
+
+def props_small():
+    """H2 geometry optimisation, a B3LYP polarizability and the
+    variational energies."""
+    from dqc_tpu.api import properties as P
+    rec = {"opts": PROPS_OPTS}
+    mol = dqc_tpu.Mol("H 0 0 0; H 1.3 0 0", basis="3-21G")
+    qc = dqc_tpu.HF(mol, opts=JOptions(**PROPS_OPTS)).run()
+    pos = np.asarray(_timed(rec, "optimal_geometry",
+                            lambda: P.optimal_geometry(qc)))
+    rec["h2_321g_optimal_geometry"] = pos.tolist()
+    rec["h2_321g_optimal_bond_bohr"] = float(np.linalg.norm(pos[1] - pos[0]))
+    mol = dqc_tpu.Mol("H 0 0 0; H 0 0 1.4", basis="3-21G", grid=1)
+    qc = dqc_tpu.KS(mol, xc="b3lyp", opts=JOptions(**PROPS_OPTS)).run()
+    rec["h2_321g_b3lyp_grid1_energy_ha"] = float(qc.energy())
+    rec["h2_321g_b3lyp_grid1_polarizability_au"] = _lists(_timed(
+        rec, "b3lyp_polarizability", lambda: P.polarizability(qc)))
+    var = {}
+    for desc, spin, params in (("H 0 0 0; H 1.0 0 0", 0,
+                                ("matexp", "qr", "ov")),
+                               ("H 0 0 0", 1, ("ov",))):
+        mol = dqc_tpu.Mol(desc, basis="3-21g", spin=spin)
+        row = {"diis_ha": float(dqc_tpu.HF(
+            mol, opts=JOptions(**PROPS_OPTS)).run().energy())}
+        for op in params:
+            row[op + "_ha"] = float(dqc_tpu.HF(mol, opts=JOptions(
+                method="variational", orb_param=op, **PROPS_OPTS)).run()
+                .energy())
+        var[f"{desc} spin {spin}"] = row
+    rec["variational_3-21g"] = var
+    rec["backend"] = jax.default_backend()
+    print(json.dumps(rec), flush=True)
+
+
 def main(names, factored=False):
+    if "properties" in names:
+        i = names.index("properties")
+        names = (names[:i] + ["props_h2o_321g", "props_h2o_sto3g",
+                              "props_small"] + names[i + 1:])
     if factored:
         from dqc_tpu.scf import df as jdf
         jdf.build_df_theta = factored_build_df_theta
     for name in names:
+        if name in ("props_h2o_321g", "props_h2o_sto3g"):
+            props_h2o("3-21G" if name.endswith("321g") else "STO-3G")
+            continue
+        if name == "props_small":
+            props_small()
+            continue
         if name == "df_vitc":
             t0 = time.perf_counter()
             mol = dqc_tpu.Mol(VITAMIN_C, basis="cc-pvdz", grid=2).densityfit()
