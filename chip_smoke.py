@@ -25,7 +25,12 @@ the dimer without densityfit(); then the property API's second and third
 derivatives of the energy through the SCF (HF H2O/3-21G against CCCBDB and
 the JAX package, B3LYP H2O/def2-SVP against central differences, the
 polarizability and multipoles of benzene) and the variational SCF (H2O,
-and benzene B3LYP against its DIIS energy). Any failed check or exception
+and benzene B3LYP against its DIIS energy); then periodic cells at the
+Gamma point (`Sol`, the simple-cubic H lattice of edge 3 Bohr, 3-21G, grid
+"sg2"): UKS-PBE of its 3x3x3 supercell H27 (nao 54, 664,012 wrapped grid
+points) on the pair-transform route, K2 and K3 at that shape, and the 2x2x2
+supercell H8 (HF, PBE, PBE0, CAM-B3LYP, the periodic fit) against JAX-CPU
+anchors, with its forces. Any failed check or exception
 ends the run with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
@@ -60,7 +65,17 @@ bra blocks coulomb_contract chose in both), `blocked_beyond_dense`,
 `variational_benzene` (the "ov" variational SCF on the main path's theta),
 `props_h2o_hf`, `props_h2o_b3lyp` and `props_benzene` (each property
 call's launches and seconds apart, the forward/backward/column seconds and
-GMRES records of each derivative, peaks), `small`, `kernels` (K3's row
+GMRES records of each derivative, peaks), `pbc_h27_pbe` (stage seconds:
+the lattice sums, the pair transforms, the Becke weights and the AO
+tables apart, the SCF; iterations, the idle share of a steady iteration,
+launches, peak; the grid's electron count; K2/K3 at (664012, 54) against
+their plain versions and timed beside their bound; a second SCF on the same
+theta and a second pair-transform build against the first, bit for bit),
+`pbc_h8_hf` (exxdiv "ewald" and None), `pbc_h8_pbe`, `pbc_h8_pbe0`,
+`pbc_h8_camb3lyp`, `pbc_h8_gdf_pbe`, `pbc_h8_gdf_camb3lyp`,
+`pbc_h8_forces` with `pbc_h8_forces_fd[hf]` and `[pbe]`, `small`,
+`kernels` (K2's and K3's rows also have their times at H27's shape,
+`pbc_h27`; K3's row
 also has its registers and spills from this run's ptxas report; every row
 its launches on every path, K1's also on the erf tensor: each path's own
 SCF, with those of the atomic SCFs of its SAD start apart; and those inside
@@ -214,6 +229,46 @@ BLOCKED_MIRROR_GATE = 1e-10
 STREAM_E_GATE_HA = 1e-8
 
 ANGSTROM_TO_BOHR = 1.0 / 0.529177210903
+
+# periodic cells at the Gamma point: the simple-cubic H lattice of edge
+# PBC_A (BASELINE.md:18, tests/test_pbc.py:89-103), 3-21G, grid "sg2".
+# H27, its 3x3x3 supercell (a 9-Bohr cube; nao 54), is the main path of the
+# periodic slice: UKS-PBE (27 electrons, spin 1) on the pair-transform
+# route. Its grid integrates the density to PBC_NELEC_GATE per cell: the
+# 1e-3 per-cell count error of this grid on the one-atom cell
+# (dqc_tpu/grid/factory.py:218-224, tests/test_pbc.py:64-86)
+PBC_A = 3.0
+PBC_NELEC_GATE = 1e-3
+H27_SHAPE = (664012, 54, 772)        # grid points, nao, virtual atoms
+# H8, the 2x2x2 supercell (a 6-Bohr cube; nao 16), restricted: JAX-CPU
+# values of dqc_tpu.HF/KS(Sol(H8, 6 eye(3), "3-21g", grid="sg2"),
+# SCFOptions(mixed=False)), float64 on an x86-64 host, made by
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_h8_hf \
+#       pbc_h8_pbe pbc_h8_pbe0 pbc_h8_camb3lyp
+# (196 s and 289 s for the two HF runs, 332, 335, 408 s for the KS ones,
+# three runs side by side on one host)
+PBC_H8_ANCHORS_HA = {"hf": -4.148790611055139,
+                     "hf_exxdiv_none": -2.2572589580680598,
+                     "pbe": -4.213428884296103,
+                     "pbe0": -4.256544754343853,
+                     "camb3lyp": -4.311594509885233}
+# the periodic fit (densityfit(method="gdf"), autoaux), made by
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+#       pbc_h8_gdf_pbe pbc_h8_gdf_camb3lyp
+# (335 s, 415 s). --factored contracts the JAX package's pseudo-inverse fit
+# in factored form, as the port does; without it its explicit v_inv loses
+# eps * cond to cancellation (the *_OWN_FIT values: 1.5e-11 and 3.7e-9 Ha
+# from the factored ones; recorded beside the gate, not gated)
+PBC_H8_GDF_ANCHORS_HA = {"pbe": -4.213429145404201,
+                         "camb3lyp": -4.310477072837884}
+PBC_H8_GDF_OWN_FIT_HA = {"pbe": -4.213429145389235,       # 247 s
+                         "camb3lyp": -4.310477076569724}  # 260 s
+PBC_GATE_HA = 1e-8
+# forces of a distorted H8 (atom 1 moved by PBC_DISTORT Bohr) against central
+# differences of the same energy_fn (the grid's wrapping and images are
+# frozen at the cell's construction, so both sides see the same function)
+PBC_DISTORT = (0.21, -0.13, 0.08)
+PBC_FD_COMPONENTS = {"hf": ((1, 0), (1, 1), (5, 2)), "pbe": ((1, 0),)}
 
 
 @contextmanager
@@ -681,15 +736,15 @@ def forces(smi_line):
     return rec
 
 
-def central_differences(name, calc, F):
+def central_differences(name, calc, F, components=FD_COMPONENTS):
     """Forces F of calc against central differences of energy_fn on the
-    card at FD_COMPONENTS (h = FD_STEP), emitted under `name`; fails above
-    FD_GATE."""
+    card at `components` ((atom, axis) pairs; h = FD_STEP), emitted under
+    `name`; fails above FD_GATE."""
     p0 = calc._all_params()
     pos0 = p0["basis"]["atompos"]
     fd_rec = []
     t_fd = time.perf_counter()
-    for atom, axis in FD_COMPONENTS:
+    for atom, axis in components:
         es, res = [], []
         for sgn in (1, -1):
             pos = pos0.clone()
@@ -2088,6 +2143,313 @@ def variational_benzene(smi_line, mol, theta, e_diis):
 
 
 
+def h_supercell(n, a=PBC_A):
+    """The n x n x n supercell of the simple-cubic H lattice of edge a."""
+    return "; ".join(f"H {i * a} {j * a} {k * a}" for i in range(n)
+                     for j in range(n) for k in range(n))
+
+
+def pbc_densities(calc, dm):
+    """The grid densities of a periodic KS calc at dm (one per spin) through
+    the plain version of K2."""
+    grid = calc._theta["grid"]
+    out = []
+    for d in (dm if dm.ndim == 3 else dm[None]):
+        rho, gdot = ds_dens_reference(grid["ao"], grid["ao_grad"],
+                                      d.contiguous())
+        out.append({"rho": rho, "grad": gdot})
+    return out
+
+
+def plain_pbc_energy(calc, dm):
+    """The energy of a periodic calc at dm with the densities through the
+    plain version of K2 (J and K, and each long-range K, are plain torch
+    products on the periodic routes)."""
+    eng, theta = calc.engine, calc._theta
+    with torch.no_grad():
+        j, k = eng.jk_parts(dm, theta)
+        if not hasattr(eng, "xc"):
+            return float(eng.energy_from_parts(dm, j, k, theta))
+        dens = pbc_densities(calc, dm)
+        pol = dm.ndim == 3
+        exc = torch.sum(integrate._edens_at(
+            eng.xc, {"u": dens[0], "d": dens[1]} if pol else dens[0], pol)
+            * theta["grid"]["dvol"])
+        return float(eng.energy_from_parts(dm, j, k, theta, exc=exc,
+                                           klr=eng.lr_parts(dm, theta)))
+
+
+PBC_STATS = ("jk_mode", "int1e_s", "n_translations", "pair_ft_s",
+             "n_gvectors", "n_pair_terms", "vnuc_s", "gdf_s", "naux",
+             "becke_s", "ao_tables_s", "grid_s", "ngrid", "n_virtual_atoms",
+             "n_ao_translations", "theta_s", "scf_s", "energy_s", "guess")
+
+
+def pbc_phase(name, sol, xc, anchor, smi_line, opts=None, gate=PBC_GATE_HA):
+    """One periodic path from Sol to the energy (HF for xc None, else KS)
+    with the launch counts set to 0 just before it and read just after.
+    Gates: the SCF converged, the energy within `gate` of its anchor (when
+    it has one), the plain path within KS_PLAIN_GATE_HA, tr(D S) = the
+    electron count, and the launches: no K1 (periodic J and K are
+    reciprocal-space products), and for a GGA K2 and K3 once per spin per
+    Fock build, K2 once more per spin for the energy. Returns (calc,
+    record)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    calc = (dq.HF(sol, opts=opts) if xc is None
+            else dq.KS(sol, xc=xc, opts=opts))
+    reset_counts()
+    calc.run()
+    launches = path_counts()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st, theta = calc.stats, calc._theta
+    dm = calc._dm.contiguous()
+    e = float(calc.energy())
+    e_plain = plain_pbc_energy(calc, dm)
+    profile = iteration_profile(calc.engine, theta, dm, smi_line)
+    nelec = sum(sol.nelec)
+    trace_ds = float(torch.einsum("...ij,ji->", dm, theta["ovlp"]))
+    iters = st["iterations"]
+    rec = {"nao": sol.meta.nao, "natm": len(sol.zs_int), "xc": xc,
+           "exxdiv": calc.opts.exxdiv, "polarized": calc.engine.polarized,
+           **{k: st.get(k) for k in PBC_STATS},
+           "iterations": iters,
+           "s_per_iteration": st["scf_s"] / max(iters, 1),
+           "total_s": total_s, "residual": st["residual"],
+           "tol": calc.opts.tol, "energy_ha": e, "energy_plain_ha": e_plain,
+           "anchor_ha": anchor,
+           "energy_minus_anchor_ha": None if anchor is None else e - anchor,
+           "launches": launches, "fock_builds": iters + 1,
+           "iteration_profile": profile, "trace_dm_ovlp": trace_ds,
+           "peak_device_bytes": peak, "card": smi_line}
+    if "grid" in theta:
+        rec["sum_dvol_rho"] = float(sum(
+            torch.sum(theta["grid"]["dvol"] * d["rho"])
+            for d in pbc_densities(calc, dm)))
+    if not np.isfinite(e) or dm.shape[-1] != sol.meta.nao:
+        fail(f"{name}: energy not finite or dm of the wrong shape")
+    if not st["residual"] <= calc.opts.tol:
+        fail(f"{name}: residual {st['residual']:.3e} above tol "
+             f"{calc.opts.tol}")
+    if anchor is not None and abs(e - anchor) > gate:
+        fail(f"{name}: energy {e!r} vs anchor {anchor!r} (gate {gate})")
+    if abs(e - e_plain) > KS_PLAIN_GATE_HA:
+        fail(f"{name}: kernel-path energy {e!r} vs plain-path {e_plain!r}")
+    if abs(trace_ds - nelec) > 1e-8:
+        fail(f"{name}: tr(D S) = {trace_ds!r}, expected {nelec}")
+    m = ((2 if calc.engine.polarized else 1)
+         * int(xc is not None and calc.engine.xc.family >= 2))
+    want_it = {"ds_jk": 0, "ds_dens_gga": m, "ds_vxc_gga": m,
+               "ds_jk_eri_lr": 0}
+    per_it = profile["port_kernel_launches_per_iteration"]
+    if per_it != want_it:
+        fail(f"{name}: one iteration launched {per_it}, expected {want_it}")
+    builds = iters + 1
+    want = {"ds_jk": 0, "ds_dens_gga": builds * m + m,
+            "ds_vxc_gga": builds * m, "ds_jk_eri_lr": 0}
+    if launches != want:
+        fail(f"{name}: the SCF launched {launches} for {builds} Fock builds "
+             f"and its energy, expected {want}")
+    return calc, rec
+
+
+def pbc_h27_pbe(smi_line):
+    """The main path of the periodic slice at full width: UKS-PBE of H27
+    (27 H atoms in a 9-Bohr cube, 3-21G, grid "sg2"; 664,012 wrapped points,
+    772 virtual atoms) on the pair-transform route, K2 and K3 once per spin
+    per Fock build on its lattice-summed tables. Gates besides pbc_phase's:
+    the shapes, the electron count of the grid per cell, K2/K3 at this
+    shape against their plain versions; recorded: a second SCF on the same
+    theta and a second pair-transform build, each against the first bit
+    for bit, and the kernels' times at this shape beside their bound."""
+    from dqc_tpu_torch.ops.pbcft import (gcut_estimate, pbc_pair_ft,
+                                         pbc_pair_plan)
+    sol = dq.Sol(h_supercell(3), np.eye(3) * 3 * PBC_A, basis="3-21g",
+                 grid="sg2")
+    calc, rec = pbc_phase("pbc_h27_pbe", sol, "pbe", None, smi_line)
+    theta, grid = calc._theta, calc._theta["grid"]
+    dm = calc._dm.contiguous()
+    ng, nao = grid["ao"].shape
+    shape = (ng, nao, len(sol.setup_grid().vowner))
+    # a second SCF on the same theta, and a second build of the pair
+    # transforms: the same bits?
+    calc2 = dq.KS(sol, xc="pbe")
+    calc2._theta = theta
+    calc2.run()
+    rec["energy_bit_identical_second_scf"] = (
+        float(calc2.energy()) == rec["energy_ha"])
+    rec["iterations_second_scf"] = calc2.stats["iterations"]
+    del calc2
+    lat = sol.lattice
+    gv, _ = lat.get_gvgrids(gcut_estimate(sol.meta, sol.params, 1e-9))
+    with torch.no_grad():
+        fre, fim = pbc_pair_ft(sol.meta, sol.params,
+                               pbc_pair_plan(sol.meta, sol.params, lat, 1e-9),
+                               gv)
+    rec["pair_ft_bit_identical_rebuild"] = bool(
+        torch.equal(fre, theta["pbcft"]["Fre"])
+        and torch.equal(fim, theta["pbcft"]["Fim"]))
+    rec["pair_ft_bytes"] = 2 * fre.numel() * 8
+    del fre, fim
+    free_device()
+    # K2 and K3 at this shape: the converged density of each spin and the
+    # real pointwise potentials at it
+    ao, ag = grid["ao"], grid["ao_grad"]
+    dens = pbc_densities(calc, dm)
+    _, vbar = integrate._pointwise_adjoints(
+        calc.engine.xc, {"u": dens[0], "d": dens[1]}, grid["dvol"], True,
+        None)
+    checks = []
+    for s, spin in enumerate("ud"):
+        checks.append(check_dens(ao, ag, dm[s], f"H27 grid, dm {spin}"))
+        checks.append(check_vxc(ao, ag, vbar[spin]["rho"].contiguous(),
+                                vbar[spin]["grad"].contiguous(),
+                                f"H27 grid, real vrho/vgrad {spin}"))
+    vr = vbar["u"]["rho"].contiguous()
+    vg = vbar["u"]["grad"].contiguous()
+    d0 = dm[0]
+
+    def dens_library():
+        c = ao @ d0.T
+        (c * ao).sum(-1)
+        2.0 * (ag * c).sum(-1)
+
+    def vxc_library():
+        w = vr[:, None] * ao + 2.0 * torch.einsum("dg,dgi->gi", vg, ag)
+        w.T @ ao
+
+    k2_ms, k2_plain = time_turns(lambda: ds_dens_gga(ao, ag, d0),
+                                 lambda: ds_dens_reference(ao, ag, d0))
+    k3_ms, k3_plain = time_turns(lambda: ds_vxc_gga(ao, ag, vr, vg),
+                                 lambda: ds_vxc_reference(ao, ag, vr, vg))
+    k2_bytes = 8 * (4 * ng * nao + nao * nao + 4 * ng)
+    k3_bytes = 8 * (4 * ng * nao + 4 * ng + nao * nao)
+    flops = 2 * ng * nao * nao + 8 * ng * nao
+    kern = {}
+    for name, ms, plain, lib, nbytes, cks in (
+            ("ds_dens_gga", k2_ms, k2_plain, time_ms(dens_library, 20),
+             k2_bytes, checks[0::2]),
+            ("ds_vxc_gga", k3_ms, k3_plain, time_ms(vxc_library, 20),
+             k3_bytes, checks[1::2])):
+        b, by = bound(nbytes, flops)
+        kern[name] = {"ng": ng, "nao": nao, "ms": min(ms), "ms_runs": ms,
+                      "plain_ms": min(plain), "plain_ms_runs": plain,
+                      "library_ms": lib, "bytes_moved": nbytes,
+                      "flops": flops, "bound_ms": b, "bound_by": by,
+                      "gbytes_per_s": nbytes / (min(ms) * 1e-3) / 1e9,
+                      "max_abs_err": max(v for c in cks for k, v in c.items()
+                                         if k.endswith("_max_abs_err")),
+                      "launches": rec["launches"][name], "card": smi_line}
+    rec.update(shape=list(shape), kernel_checks=checks, kernels=kern)
+    emit({"pbc_h27_pbe": rec})
+    if shape != H27_SHAPE:
+        fail(f"pbc_h27_pbe: (ng, nao, virtual atoms) = {shape}, expected "
+             f"{H27_SHAPE}")
+    natm = len(sol.zs_int)
+    if abs(rec["sum_dvol_rho"] - natm) > natm * PBC_NELEC_GATE:
+        fail(f"pbc_h27_pbe: sum dvol rho = {rec['sum_dvol_rho']!r}, "
+             f"expected {natm} within {natm * PBC_NELEC_GATE}")
+    del calc, theta, grid, ao, ag, dm, dens, vbar, vr, vg, d0
+    return rec
+
+
+def pbc_h8(smi_line):
+    """The periodic routes on H8 (a 6-Bohr cube, restricted, nao 16)
+    against JAX-CPU anchors: HF with exxdiv "ewald" and None, PBE, PBE0,
+    CAM-B3LYP (long-range K as full minus short-range on wsr0), and the
+    periodic fit with PBE and CAM-B3LYP (its short-range fit df_sr0).
+    Returns {phase: record}."""
+    def sol(gdf=False):
+        s = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                   grid="sg2")
+        return s.densityfit(method="gdf") if gdf else s
+
+    out = {}
+    hf = {}
+    for key, exxdiv in (("ewald", "ewald"), ("none", None)):
+        anchor = PBC_H8_ANCHORS_HA["hf" if exxdiv else "hf_exxdiv_none"]
+        calc, hf[key] = pbc_phase(f"pbc_h8_hf[{key}]", sol(), None, anchor,
+                                  smi_line,
+                                  opts=dq.SCFOptions(exxdiv=exxdiv))
+        hf[key]["madelung"] = calc._theta["pbcft"]["madelung"]
+        del calc
+    out["pbc_h8_hf"] = hf
+    emit({"pbc_h8_hf": hf})
+    for xc in ("pbe", "pbe0", "camb3lyp"):
+        name = f"pbc_h8_{xc}"
+        calc, out[name] = pbc_phase(name, sol(), xc, PBC_H8_ANCHORS_HA[xc],
+                                    smi_line)
+        out[name]["theta_keys"] = sorted(calc._theta["pbcft"])
+        emit({name: out[name]})
+        del calc
+        free_device()
+    for xc in ("pbe", "camb3lyp"):
+        name = f"pbc_h8_gdf_{xc}"
+        calc, rec = pbc_phase(name, sol(gdf=True), xc,
+                              PBC_H8_GDF_ANCHORS_HA[xc], smi_line)
+        rec["anchor_own_fit_ha"] = PBC_H8_GDF_OWN_FIT_HA[xc]
+        rec["minus_aft_ha"] = rec["energy_ha"] - out[f"pbc_h8_{xc}"][
+            "energy_ha"]
+        rec["theta_keys"] = sorted(k for k in calc._theta
+                                   if k.startswith("df"))
+        if calc.jk_mode != "gdf" or "pbcft" in calc._theta:
+            fail(f"{name}: route {calc.jk_mode!r}, expected 'gdf'")
+        out[name] = rec
+        emit({name: rec})
+        del calc
+        free_device()
+    return out
+
+
+def pbc_h8_forces(smi_line):
+    """HF and PBE forces of a distorted H8 by implicit differentiation on
+    the card, against central differences of the same energy_fn; the sum of
+    the forces (translation invariance) below 1e-8."""
+    pos = np.array([[float(v) for v in a.split()[1:]]
+                    for a in h_supercell(2).split(";")])
+    pos[1] += PBC_DISTORT
+    out = {}
+    for key, xc in (("hf", None), ("pbe", "pbe")):
+        sol = dq.Sol((["H"] * 8, pos), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                     grid="sg2")
+        calc = dq.HF(sol) if xc is None else dq.KS(sol, xc=xc)
+        calc.run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        g = calc.energy_grad()
+        launches = _launch_counts()
+        F = -g["basis"]["atompos"].detach().cpu().numpy()
+        sumF = float(np.abs(F.sum(0)).max())
+        rec = {"xc": xc, "energy_ha": float(calc.energy()),
+               "scf_iterations": calc.stats["iterations"],
+               "grad_s": calc.stats["grad_s"],
+               "grad_forward_s": calc.stats["grad_forward_s"],
+               "grad_backward_s": calc.stats["grad_backward_s"],
+               "gmres": calc.stats["gmres"], "launches_in_gradient": launches,
+               "peak_device_bytes_gradient": torch.cuda.max_memory_allocated(),
+               "max_abs_sum_F": sumF, "forces": F.tolist(), "card": smi_line}
+        central_differences(f"pbc_h8_forces_fd[{key}]", calc, F,
+                            PBC_FD_COMPONENTS[key])
+        out[key] = rec
+        if not np.all(np.isfinite(F)) or F.shape != (8, 3):
+            fail(f"pbc_h8_forces[{key}]: forces not finite or of shape "
+                 f"{F.shape}")
+        if sumF > 1e-8:
+            fail(f"pbc_h8_forces[{key}]: sum of the forces {sumF:.3e}")
+        if xc is not None and not (launches["ds_dens_gga"] > 0
+                                   and launches["ds_vxc_gga"] > 0):
+            fail(f"pbc_h8_forces[{key}]: kernels inside the gradient: "
+                 f"{launches}")
+        del calc, g
+        free_device()
+    emit({"pbc_h8_forces": out})
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -2524,6 +2886,16 @@ def main():
         smi_line, main_ks["energy_ha"], theta_zz, dimer_rec["energy_ha"])
     xc_checks += bbd_checks
     free_device()
+    # 14. periodic cells at the Gamma point: the slice's main path at full
+    # width (UKS-PBE of H27, K2 and K3 once per spin per Fock build), the
+    # routes of H8 against JAX-CPU anchors, and H8's forces
+    h27_rec = pbc_h27_pbe(smi_line)
+    xc_checks += h27_rec["kernel_checks"]
+    free_device()
+    h8_recs = pbc_h8(smi_line)
+    free_device()
+    pbc_force_rec = pbc_h8_forces(smi_line)
+    free_device()
     by_path = {"main_path_hf": hf_launches, "main_path_ks": ks_launches,
                "forces_gradient": force_rec["launches_in_gradient"],
                "cam_b3lyp": cam_rec["launches"],
@@ -2541,7 +2913,14 @@ def main():
                    blocked_force_rec["launches_in_gradient"],
                "stream_b3lyp": stream_rec["launches"],
                "blocked_vitamin_c": blocked_vitc_rec["launches"],
-               "blocked_beyond_dense": bbd_rec["launches"]}
+               "blocked_beyond_dense": bbd_rec["launches"],
+               "pbc_h27_pbe": h27_rec["launches"],
+               **{f"pbc_h8_hf[{k}]": r["launches"]
+                  for k, r in h8_recs["pbc_h8_hf"].items()},
+               **{ph: r["launches"] for ph, r in h8_recs.items()
+                  if ph != "pbc_h8_hf"},
+               **{f"pbc_h8_forces_gradient[{k}]": r["launches_in_gradient"]
+                  for k, r in pbc_force_rec.items()}}
 
     sad_by_path = {"main_path_hf": hf_sad, "main_path_ks": ks_sad,
                    "cam_b3lyp": cam_rec["launches_sad"],
@@ -2643,6 +3022,7 @@ def main():
         "gate_rel": GATE_REL,
         "gbytes_per_s": k2_bytes / (min(k2_ms) * 1e-3) / 1e9,
         "gflop_per_s": k2_flops / (min(k2_ms) * 1e-3) / 1e9,
+        "pbc_h27": h27_rec["kernels"]["ds_dens_gga"],
         "card": smi_line,
     }, {
         "name": "ds_vxc_gga", "route": "cuda",
@@ -2665,6 +3045,7 @@ def main():
         "gbytes_per_s": k3_bytes / (min(k3_ms) * 1e-3) / 1e9,
         "gflop_per_s": k3_flops / (min(k3_ms) * 1e-3) / 1e9,
         "resources": ptxas_summary(builds["ds_vxc_gga"]["log"]),
+        "pbc_h27": h27_rec["kernels"]["ds_vxc_gga"],
         "card": smi_line,
     }], "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

@@ -18,7 +18,11 @@ range-separated hybrid, come from a hand-written CUDA kernel
 density-fitted route (scf/df.py: RI-J and RI-K, and an attenuated-metric
 fit for the long-range K), which builds no nao^4 tensor. On both the grid
 density and V_xc of a GGA or meta-GGA come from two more kernels
-(ops/hopper_xc.py, csrc/ds_dens_gga.cu, csrc/ds_vxc_gga.cu).
+(ops/hopper_xc.py, csrc/ds_dens_gga.cu, csrc/ds_vxc_gga.cu). Periodic
+solids (Sol) run at the Gamma point: J, K and the nuclear attraction from
+analytic pair Fourier transforms with Ewald and Madelung terms, or a
+Gaussian fit in the periodic Coulomb metric (sol.densityfit(method="gdf")),
+and the XC terms on a cell-wrapped grid through the same two kernels.
 
 Calculations run on the CUDA card unless the caller passes device="cpu";
 without a card and without that argument the entry points raise.
@@ -31,6 +35,7 @@ from .basis import loadbasis                     # noqa: F401
 from .utils.datastruct import (                  # noqa: F401
     SpinParam, ValGrad, CGTOBasis, AtomCGTOBasis)
 from .system.mol import Mol                      # noqa: F401
+from .system.sol import Sol                      # noqa: F401
 from .scf.qccalc import HF, KS, SCF_QCCalc       # noqa: F401
 from .scf.fixed_point import SCFOptions          # noqa: F401
 from .xc import get_xc, get_libxc                # noqa: F401
@@ -42,7 +47,6 @@ from .api.properties import (                    # noqa: F401
 
 # names of the JAX package that later parts of the port bring
 _NOT_PORTED = {
-    "Sol": "periodic systems (ROADMAP A14)",
     "band_energies": "k-point periodic systems (ROADMAP A15)",
 }
 

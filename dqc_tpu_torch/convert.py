@@ -37,7 +37,10 @@ def theta_from_numpy(theta_np: dict, device=None) -> dict:
 
     Takes hcore, ovlp, X, keep, enuc, occ and eri_k; a J-layout `eri`
     ((ij|kl)) is turned into the exchange layout eri_k the port's engine
-    consumes. Other keys (grid tables, kernel planes) are not carried."""
+    consumes. A periodic theta also brings its pair transforms `pbcft`
+    (Fre, Fim, wcoul, wsr{i}, madelung) and its fits `df` and `df_sr{i}`
+    (df_from_numpy). Other keys (grid tables, kernel planes) are not
+    carried."""
     device = resolve_device(device)
     out = {}
     for key in ("hcore", "ovlp", "X", "enuc", "occ"):
@@ -51,6 +54,32 @@ def theta_from_numpy(theta_np: dict, device=None) -> dict:
     elif "eri" in theta_np:
         out["eri_k"] = _f64(theta_np["eri"], device).permute(
             0, 2, 1, 3).contiguous()
+    if "pbcft" in theta_np:
+        out["pbcft"] = {
+            k: ((None if v is None else float(v)) if k == "madelung"
+                else _f64(v, device))
+            for k, v in theta_np["pbcft"].items()}
+    for key, df in theta_np.items():
+        if key == "df" or key.startswith("df_sr"):
+            out[key] = df_from_numpy(df, device)
+    return out
+
+
+def df_from_numpy(df_np: dict, device=None) -> dict:
+    """A periodic fit of the JAX package ({'j3c': (nao, nao, naux), 'v_inv':
+    (naux, naux)}, with 'madelung' and 'ovlp' when it carries the exchange's
+    G = 0 term) in the port's factored form {'B': (nao, naux, nao)}: B_Q =
+    sum_P j3c_P (v_inv^(1/2))_PQ, so that sum_Q B_Q x B_Q = j3c v_inv j3c;
+    v_inv's square root from its eigenvalues, those below zero (rounding
+    of the pseudo-inverse's dropped part) taken as zero."""
+    device = resolve_device(device)
+    w, v = np.linalg.eigh(np.asarray(df_np["v_inv"], dtype=np.float64))
+    half = (v * np.sqrt(np.clip(w, 0.0, None))[None, :]) @ v.T
+    b = np.einsum("ikp,pq->iqk", np.asarray(df_np["j3c"]), half)
+    out = {"B": _f64(b, device)}
+    if df_np.get("madelung") is not None:
+        out["madelung"] = float(df_np["madelung"])
+        out["ovlp"] = _f64(df_np["ovlp"], device)
     return out
 
 

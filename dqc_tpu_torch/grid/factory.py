@@ -6,8 +6,9 @@ per-slice Lebedev truncation tables) and integer levels 0-9 (per-element
 Treutler-Ahlrichs M4 radial and NWChem-style pruning). The factory runs on
 the host (data-dependent shapes) and emits a GridSpec of flat numpy
 arrays; point positions and Becke weights are recomputed on the device by
-xc/integrate.setup_grid_theta. Periodic wrapping (PBCGridSpec,
-pbc_wrap_grid) is not ported yet (ROADMAP A14).
+xc/integrate.setup_grid_theta. For a periodic cell the grid is wrapped
+into the cell (PBCGridSpec, pbc_wrap_grid); get_predefined_grid(...,
+pbc=True) builds the atomic grids it wraps.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from typing import Sequence
 import numpy as np
 
 from ..utils.periodictable import get_bragg_radius, get_expected_radius
-from .angular import angular_rule
+from .angular import angular_rule, product_angular_grid
 from .radial import (DE2Transformation, TreutlerM4Transformation,
                      radial_grid)
 
@@ -119,12 +120,64 @@ def _pruned_degree(r_over_R: float, degree: int) -> int:
     return degree
 
 
-def _append_blocks(out, ia, r, wr, degs):
+@dataclass
+class PBCGridSpec:
+    """Cell-wrapped periodic Becke grid (host numpy; fixed when the cell is
+    built): every atomic-grid point is translated back into the unit cell;
+    the translated copies of its parent atom become "virtual atoms", and the
+    Becke partition runs over them. The shifts and the point-to-virtual-atom
+    map are frozen from the construction geometry; the point coordinates and
+    the weights are recomputed from atompos on the device
+    (scf/pbc.setup_pbc_grid_theta), so the quadrature moves with the atoms."""
+    ratom: np.ndarray       # (ng,) radial distance from the owning real atom
+    dirs: np.ndarray        # (ng, 3)
+    w0: np.ndarray          # (ng,)
+    atom_idx: np.ndarray    # (ng,) owning real atom (for point coordinates)
+    shift: np.ndarray       # (ng, 3) lattice translation into the cell
+    vatom_idx: np.ndarray   # (ng,) owning virtual atom (for Becke weights)
+    vowner: np.ndarray      # (nv,) real atom behind each virtual atom
+    vshift: np.ndarray      # (nv, 3) lattice translation of each virtual atom
+    atom_radii: np.ndarray  # (natm,) Bragg radii of the real atoms
+
+    @property
+    def ngrid(self) -> int:
+        return len(self.ratom)
+
+
+def pbc_wrap_grid(spec: GridSpec, atompos, lattice, min_pts: int = 8
+                  ) -> PBCGridSpec:
+    """Wrap a molecular GridSpec into the unit cell (PBCGridSpec). Shifts
+    holding `min_pts` or fewer points are dropped with their points, as
+    PySCF does."""
+    pos = (atompos.detach().cpu().numpy() if hasattr(atompos, "detach")
+           else np.asarray(atompos))
+    a = lattice._a_np
+    binv = np.linalg.inv(a)                        # u = r @ binv
+    coords = pos[spec.atom_idx] + spec.ratom[:, None] * spec.dirs
+    ns = -np.floor(coords @ binv).astype(np.int64)             # (ng, 3)
+    # virtual atoms: the unique (owner, shift) pairs with > min_pts points
+    key = np.concatenate([spec.atom_idx[:, None], ns], axis=1)
+    uniq, inv, cnt = np.unique(key, axis=0, return_inverse=True,
+                               return_counts=True)
+    inv = inv.reshape(-1)
+    keep_u = cnt > min_pts
+    keep_pt = keep_u[inv]
+    new_id = -np.ones(len(uniq), dtype=np.int64)
+    new_id[keep_u] = np.arange(int(keep_u.sum()))
+    return PBCGridSpec(
+        ratom=spec.ratom[keep_pt], dirs=spec.dirs[keep_pt],
+        w0=spec.w0[keep_pt], atom_idx=spec.atom_idx[keep_pt],
+        shift=ns[keep_pt] @ a, vatom_idx=new_id[inv[keep_pt]],
+        vowner=uniq[keep_u, 0], vshift=uniq[keep_u, 1:] @ a,
+        atom_radii=spec.atom_radii)
+
+
+def _append_blocks(out, ia, r, wr, degs, rule=angular_rule):
     """Append per-radial-point angular shells, grouped by equal degree."""
     ratom, dirs, w0, aidx = out
     for d in np.unique(degs):
         sel = degs == d
-        ang_pts, ang_w = angular_rule(int(d))
+        ang_pts, ang_w = rule(int(d))
         nang = len(ang_w)
         nsel = int(sel.sum())
         ratom.append(np.repeat(r[sel], nang))
@@ -134,7 +187,7 @@ def _append_blocks(out, ia, r, wr, degs):
 
 
 def get_predefined_grid(grid, atomzs: Sequence[int], atompos=None,
-                        prune: bool = True) -> GridSpec:
+                        prune: bool = True, pbc: bool = False) -> GridSpec:
     """grid: int level 0-9 or "sg2"/"sg3".
 
     Integer levels: Treutler-M4 radial (per-Z xi, nr grows with period) x
@@ -143,7 +196,15 @@ def get_predefined_grid(grid, atomzs: Sequence[int], atompos=None,
     rmax = 15 * expected radius) radial, per-radial-slice Lebedev
     precisions from the published truncation tables (NWChem pruning for
     elements outside the tables). `atompos` is not needed: the spec is
-    relative to the owning atom."""
+    relative to the owning atom.
+
+    pbc=True (the grid of a Sol, wrapped by pbc_wrap_grid): a named grid
+    takes its (radial count, degree) on the Treutler radial grid with NWChem
+    pruning, and every grid the product angular rules: wrapping moves outer
+    points into neighbouring density maxima, which the Dasgupta truncation
+    tables and the low Lebedev degrees under-resolve (the JAX package
+    measured 1.7e-2 electrons of count error on an H cell of 3 Bohr with
+    them, 3e-4 without)."""
     named = isinstance(grid, str)
     if named:
         key = grid.lower()
@@ -152,6 +213,7 @@ def get_predefined_grid(grid, atomzs: Sequence[int], atompos=None,
                              f"{sorted(_NAMED)}, or a level 0-9")
         nr_base, degree = _NAMED[key]
         alphas = _SG2_DE2_ALPHAS if key == "sg2" else _SG3_DE2_ALPHAS
+        named = not pbc
     else:
         nr_base, degree = _LEVELS[int(grid)]
     out = ([], [], [], [])
@@ -178,7 +240,8 @@ def get_predefined_grid(grid, atomzs: Sequence[int], atompos=None,
             degs = np.array([_pruned_degree(ri / R, degree) for ri in r])
         else:
             degs = np.full(nr, degree, dtype=int)
-        _append_blocks(out, ia, r, wr, degs)
+        _append_blocks(out, ia, r, wr, degs,
+                       rule=product_angular_grid if pbc else angular_rule)
     ratom, dirs, w0, aidx = out
     radii = np.array([get_bragg_radius(int(z)) for z in atomzs])
     return GridSpec(ratom=np.concatenate(ratom),

@@ -4,14 +4,16 @@
 A dense polynomial x exponential contraction over the class-batched shells
 of ops/shellstruct.py, in plain torch, so gradients in positions, exponents
 and coefficients come from autograd. The AO order is the order of the
-integral matrices. The lattice-summed evaluators (eval_ao_pbc*) are not
-ported yet (ROADMAP A14/A15).
+integral matrices. eval_ao_pbc is the Gamma-point lattice sum of eval_ao
+over translations (the Bloch sums of eval_ao_pbc_k belong to the k-point
+slice).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from ..utils.config import block_bytes
 from .mcd import _cart_components as cart_components
 from .shellstruct import BasisMeta, normalized_coeffs, nsph, sph_transform
 
@@ -107,3 +109,30 @@ def eval_ao(meta: BasisMeta, params, coords, deriv: int = 0):
         out["ao_lapl"] = torch.cat(
             [b.reshape(ng, -1) for b in blocks["ao_lapl"]], dim=-1)[:, inv]
     return out
+
+
+# doubles of eval_ao's temporaries per point and AO (a bound from its
+# polynomial, exponential and derivative tables at l <= 2)
+_EVAL_DOUBLES_PER_POINT_AO = 48
+
+
+def eval_ao_pbc(meta: BasisMeta, params, coords, ls, deriv: int = 0):
+    """Lattice-summed (Gamma-point) AO tables: phi~_i(r) = sum_T phi_i(r -
+    T) over the host-enumerated translations ls (nL, 3); the layout of
+    eval_ao. The translations are taken as many at a time as utils/config's
+    PBC_BLOCK_BYTES allows for these points and summed in their order."""
+    ls = np.asarray(ls, dtype=np.float64)
+    nL, ng = len(ls), coords.shape[0]
+    per_shift = 8 * _EVAL_DOUBLES_PER_POINT_AO * ng * meta.nao
+    shift_block = max(1, block_bytes(coords.device) // per_shift)
+    acc = None
+    for s0 in range(0, nL, shift_block):
+        Tc = torch.as_tensor(ls[s0:s0 + shift_block], dtype=coords.dtype,
+                             device=coords.device)
+        nb = Tc.shape[0]
+        tabs = eval_ao(meta, params, (coords[None] - Tc[:, None]).reshape(
+            nb * ng, 3), deriv=deriv)
+        red = {k: v.reshape((nb, ng) + v.shape[1:]).sum(dim=0)
+               for k, v in tabs.items()}
+        acc = red if acc is None else {k: acc[k] + red[k] for k in acc}
+    return acc

@@ -177,10 +177,16 @@ def df_j(df, dm_tot):
 def df_k(df, dm):
     """RI-K exchange: K = sum_Q B_Q dm B_Q for dm (nao, nao), or per spin
     for dm (2, nao, nao). One intermediate U[k,Q,j] = (dm B_Q)[k,j] of B's
-    size."""
+    size. A periodic fit that carries 'madelung' (scf/pbc.build_pbc_gdf)
+    adds the dropped G = 0 term of the exchange, M S dm S with its 'ovlp'
+    (exxdiv "ewald", as ops/pbcft.aft_k)."""
     if dm.ndim == 3:
         return torch.stack([df_k(df, d) for d in dm])
     b = df["B"]
     nao = b.shape[0]
     u = dm @ b.reshape(nao, -1)
-    return b.reshape(-1, nao).T @ u.reshape(-1, nao)
+    k = b.reshape(-1, nao).T @ u.reshape(-1, nao)
+    if "madelung" in df:
+        s = df["ovlp"]
+        k = k + df["madelung"] * (s @ dm @ s)
+    return k

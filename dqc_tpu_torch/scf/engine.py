@@ -22,16 +22,24 @@ Four routes for J and K, chosen by what theta carries:
     Fock build, J and both spins' K in one pass over them.
   - streamed: the pair groups' Hermite factors theta['jk_facs']; every
     Fock build rebuilds each block, contracts it and drops it.
+  - periodic (a Sol at the Gamma point): theta['pbcft'], the pair
+    Fourier transforms of ops/pbcft.py; J and K are reciprocal-space
+    products (aft_j, aft_k with the Madelung term), as in the JAX package,
+    and the long-range K of each omega is the full K minus the short-range
+    one on the weights wsr{i}. A periodic fit (densityfit(method="gdf"))
+    takes the DF route, its long-range K the full fit's minus that of the
+    short-range fit df_sr{i}.
 The blocked and streamed routes need the engine's jk_info (the BasisMeta
 and scf/jk.build_jk_meta's groups) and have no long-range exchange; a
-functional without exact exchange builds J only there, as on the DF route.
-The periodic branches of the JAX engine are not ported yet.
+functional without exact exchange builds J only there, as on the DF and
+periodic routes.
 """
 from __future__ import annotations
 
 import torch
 
 from ..ops.hopper_jk import ds_jk, ds_jk_kplanes
+from ..ops.pbcft import aft_j, aft_k, aft_k_weighted
 from ..xc.integrate import exc_energy, vxc_matrix
 from .df import df_j, df_k
 from .eigh import eigh_density
@@ -83,6 +91,8 @@ class HFEngine:
                            want_j=want_j, want_k=want_k)
 
     def _j(self, theta, dm_tot):
+        if "pbcft" in theta:
+            return aft_j(theta["pbcft"], dm_tot)
         if "df" in theta:
             return df_j(theta["df"], dm_tot)
         if self._exact(theta):
@@ -90,6 +100,8 @@ class HFEngine:
         return ds_jk_kplanes(theta["eri_k"], dm_tot.contiguous())[0]
 
     def _k(self, theta, dm):
+        if "pbcft" in theta:
+            return aft_k(theta, dm)
         if "df" in theta:
             return df_k(theta["df"], dm)
         if dm.ndim == 3:
@@ -100,8 +112,8 @@ class HFEngine:
         """(J of the total density, K per spin): on the dense route from the
         fused kernel, one pass over eri_k per spin; on the DF route RI-J
         and RI-K; on the blocked and streamed routes from one pass over the
-        blocks."""
-        if "df" in theta:
+        blocks; on the periodic route from the pair transforms."""
+        if "df" in theta or "pbcft" in theta:
             return self._j(theta, self.dm_tot(dm)), self._k(theta, dm)
         if self._exact(theta):
             return self._exact_jk(theta, dm, True, True)
@@ -175,9 +187,10 @@ class KSEngine(HFEngine):
         self.xc = xc
 
     def jk_parts(self, dm, theta):
-        """HFEngine's, except that the DF, blocked and streamed routes
-        compute no K for a functional without exact exchange (k = None)."""
-        if self.xc.exx_fraction == 0.0 and ("df" in theta
+        """HFEngine's, except that the DF, blocked, streamed and periodic
+        routes compute no K for a functional without exact exchange (k =
+        None)."""
+        if self.xc.exx_fraction == 0.0 and ("df" in theta or "pbcft" in theta
                                             or self._exact(theta)):
             return self._j(theta, self.dm_tot(dm)), None
         return super().jk_parts(dm, theta)
@@ -187,15 +200,23 @@ class KSEngine(HFEngine):
         xc.exx_lr: the trailing output of K1 on eri_lr_k{i}, one launch per
         spin (the same contraction as the JAX package's
         einsum("ikjl,...kl->...ij", eri_lr, dm)), or RI-K on the
-        attenuated-metric fit df_lr{i}."""
+        attenuated-metric fit df_lr{i}. Periodic (the JAX package's
+        engine.py:131-148): the full K (with its Madelung term) minus the
+        short-range K, on the pair transforms with the weights wsr{i} or as
+        RI-K on the fits df and df_sr{i}."""
         key = f"eri_lr_k{i}"
         if f"df_lr{i}" in theta:
             return df_k(theta[f"df_lr{i}"], dm)
+        if f"df_sr{i}" in theta:
+            return df_k(theta["df"], dm) - df_k(theta[f"df_sr{i}"], dm)
+        if "pbcft" in theta:
+            p = theta["pbcft"]
+            return aft_k(theta, dm) - aft_k_weighted(p, dm, p[f"wsr{i}"])
         if key not in theta:
-            raise NotImplementedError(
-                "not ported yet: long-range exchange without a dense "
-                f"attenuated ERI ({key!r}) or its density fit (df_lr{i}); "
-                "periodic range separation is ROADMAP A14")
+            raise ValueError(
+                f"theta has no long-range exchange of term {i}: no dense "
+                f"attenuated ERI ({key!r}), density fit (df_lr{i}, df_sr{i}) "
+                "or periodic pair transforms (pbcft)")
         if dm.ndim == 3:
             return torch.stack([self._k_lr(theta, d, i) for d in dm])
         return ds_jk(theta[key], dm.contiguous())[0]

@@ -30,8 +30,11 @@ GUESS_NAO the SCF starts from the superposition of atomic densities
 gives it. HF/KS(variational=True), or SCFOptions(method="variational"),
 minimise the energy over orbital rotations by BFGS instead of DIIS
 (_variational_solver). A molecule's grid-tabulated external potential
-(Mol(vext=...)) is added to hcore on every route. Periodic systems are not
-ported yet.
+(Mol(vext=...)) is added to hcore on every route. A periodic cell (Sol)
+runs at the Gamma point (_pbc_calc): theta from scf/pbc.build_pbc_core_theta
+(the pair-Fourier-transform route "aft", or "gdf" after
+sol.densityfit(method="gdf")) and, for KS, the cell-wrapped grid tables of
+setup_pbc_grid_theta; a Sol with k-points raises.
 
 Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
 params in the autograd graph (one-electron integrals, the in-graph
@@ -56,6 +59,7 @@ import torch
 from ..basis.autoaux import autoaux
 from ..ops.aoeval import eval_ao
 from ..ops.eri import eri_dense, screened_pair_classes
+from ..ops.pbc import estimate_rcut
 from ..ops.shellstruct import nsph, pack_basis
 from ..utils.config import config
 from ..utils.datastruct import SpinParam
@@ -72,6 +76,8 @@ from .hamilton import build_core_theta
 from .jk import (build_jk_blocks, build_jk_factors, build_jk_meta,
                  factors_to_theta, jk_blocks_nbytes, jk_combos)
 from .orth import LARGE
+from .pbc import (build_pbc_core_theta, madelung_constant,
+                  setup_pbc_grid_theta)
 
 # at and above this nao the SCF starts from the Fock matrix of the SAD
 # density (guess="sad", the default) or the GWH Fock (guess="gwh"); below it
@@ -588,7 +594,7 @@ def _options(variational, opts):
     return opts
 
 
-def _route(mol, opts, what, n_lr: int = 0):
+def _route(mol, opts, n_lr: int = 0):
     """(mode, jk_info) of a molecule: 'df' with densityfit(); else 'dense'
     while its 1 + n_lr dense nao^4 tensors (eri_k and the attenuated ones of
     a range-separated hybrid) fit config.DENSE_ERI_BYTES_LIMIT together;
@@ -598,9 +604,6 @@ def _route(mol, opts, what, n_lr: int = 0):
     Raises for what the port does not cover yet, and for a range-separated
     hybrid past the dense limit, which the blocked and streamed routes do
     not serve (as in the JAX package, dqc_tpu/scf/qccalc.py:1795-1799)."""
-    if hasattr(mol, "lattice"):
-        raise NotImplementedError(
-            f"not ported yet: periodic {what} (ROADMAP A14)")
     if opts.guess not in ("sad", "gwh"):
         raise ValueError(f"unknown initial guess {opts.guess!r}")
     if mol.dfinfo is not None:
@@ -753,6 +756,73 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
     return theta
 
 
+# the JAX package's two precisions of a periodic cell: the translations of
+# the AO lattice sums, and the core theta (lattice sums, G cutoff, pair plan)
+PBC_AO_PRECISION = 1e-8
+PBC_CORE_PRECISION = 1e-9
+
+
+def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
+    """Gamma-point HF (xc None) or KS of a periodic cell, the JAX package's
+    _pbc_hf and _pbc_ks (dqc_tpu/scf/qccalc.py:1652-1716): J and K from the
+    pair transforms (route "aft") or the periodic fit (route "gdf"); the
+    Madelung correction of exact exchange for opts.exxdiv "ewald" (None:
+    none), computed only when the method has exact exchange; KS adds the
+    cell-wrapped grid tables. stats: the stage seconds of
+    build_pbc_core_theta, grid_s with becke_s and ao_tables_s."""
+    kpts = np.asarray(sol.kpts)
+    if len(kpts) > 1 or np.abs(kpts).max() > 1e-12:
+        raise NotImplementedError(
+            "not ported yet: periodic systems with k-points other than Gamma "
+            "(ROADMAP A15)")
+    if opts.exxdiv not in ("ewald", None):
+        raise ValueError(f"unknown exxdiv {opts.exxdiv!r}; 'ewald' or None")
+    polarized = sol.polarized if restricted is None else (not restricted)
+    occ = _occ_array(sol, polarized)
+    omegas = () if xc is None else tuple(w for _, w in xc.exx_lr)
+    needs_k = xc is None or xc.exx_fraction != 0.0 or bool(omegas)
+    mad = (madelung_constant(sol.lattice)
+           if needs_k and opts.exxdiv == "ewald" else None)
+    gdfset = _df_setup(sol)
+    if xc is not None:
+        grid = sol.setup_grid()
+        ls_ao = sol.lattice.get_lattice_ls(
+            estimate_rcut(sol.meta, sol.params, PBC_AO_PRECISION))
+
+    def build_theta(params, stats=None):
+        dev = sol.device
+        times = {"jk_mode": "aft" if gdfset is None else "gdf"}
+        gdf_aux = None
+        if gdfset is not None:
+            gdf_aux = (gdfset[0], dict(gdfset[1],
+                                       atompos=params["basis"]["atompos"]))
+        theta = build_pbc_core_theta(
+            sol, params["basis"], params["atomzs"],
+            precision=PBC_CORE_PRECISION, madelung=mad, gdf_aux=gdf_aux,
+            lr_omegas=omegas, stats=times)
+        theta["occ"] = occ
+        if xc is not None:
+            t0 = time.perf_counter()
+            theta["grid"] = setup_pbc_grid_theta(
+                sol.meta, params["basis"], grid, ls_ao, family=xc.family,
+                stats=times)
+            theta["xc_params"] = params.get("xc_params")
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+            times["grid_s"] = time.perf_counter() - t0
+        if stats is not None:
+            stats.update(times)
+        return theta
+
+    engine = (HFEngine(polarized=polarized) if xc is None
+              else KSEngine(xc, polarized=polarized))
+    calc = SCF_QCCalc(sol, engine, build_theta=build_theta, opts=opts,
+                      jk_mode="aft" if gdfset is None else "gdf")
+    if isinstance(xc, CustomXC):
+        calc._xc_params = {xc.key: xc.init_params}
+    return calc
+
+
 def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
        opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
     """Hartree-Fock front end.
@@ -766,9 +836,11 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
     fit config.BLOCKED_JK_BYTES_LIMIT, and the streamed route past that
     (_route, scf/jk.py). A molecule with densityfit() takes the DF route:
     RI-J and RI-K from the fit of scf/df.py, no nao^4 tensor, no size
-    limit."""
+    limit. A periodic cell (Sol) runs at the Gamma point (_pbc_calc)."""
     opts = _options(variational, opts)
-    mode, jk_info = _route(mol, opts, "Hartree-Fock")
+    if hasattr(mol, "lattice"):
+        return _pbc_calc(mol, None, restricted, opts)
+    mode, jk_info = _route(mol, opts)
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     dfset = _df_setup(mol)
@@ -799,10 +871,13 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
     whose dense tensors do not fit the dense limit raises, naming
     mol.densityfit(). Every route runs K2/K3 for the density and V_xc of a
     GGA or meta-GGA. A CustomXC's parameters are differentiable inputs:
-    energy_grad()['xc_params']."""
+    energy_grad()['xc_params']. A periodic cell (Sol) runs at the Gamma
+    point (_pbc_calc), K2/K3 on its lattice-summed grid tables."""
     xc = get_xc(xc)
     opts = _options(variational, opts)
-    mode, jk_info = _route(mol, opts, "Kohn-Sham", n_lr=len(xc.exx_lr))
+    if hasattr(mol, "lattice"):
+        return _pbc_calc(mol, xc, restricted, opts)
+    mode, jk_info = _route(mol, opts, n_lr=len(xc.exx_lr))
     polarized = mol.polarized if restricted is None else (not restricted)
     occ = _occ_array(mol, polarized)
     grid = mol.setup_grid()

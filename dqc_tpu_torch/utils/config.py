@@ -47,6 +47,17 @@ config.VERBOSE = int(_os.environ.get("DQC_TPU_VERBOSE", config.VERBOSE))
 DTYPE = torch.float64
 
 
+# the periodic path (pair Fourier transforms, exchange, Becke weights of the
+# wrapped grid, lattice-summed AO tables) cuts its largest axis into blocks
+# whose temporaries take about this many bytes, by device type
+PBC_BLOCK_BYTES = {"cuda": 1024 ** 3, "cpu": 128 * 1024 ** 2}
+
+
+def block_bytes(device) -> int:
+    """The byte budget of one block of the periodic path on `device`."""
+    return PBC_BLOCK_BYTES[torch.device(device).type]
+
+
 def resolve_device(device=None) -> torch.device:
     """The device a calculation runs on. None means the CUDA card; without
     one the caller has to ask for the CPU by name."""

@@ -164,7 +164,7 @@ def test_ks_takes_meta_ggas_and_range_separation_on_the_dense_route(
     with pytest.raises(ValueError, match="unknown SCF method"):
         dqt.KS(mol, xc="pbe", opts=dqt.SCFOptions(method="newton"))
     # the long-range K needs its attenuated tensor in theta
-    with pytest.raises(NotImplementedError, match="A14"):
+    with pytest.raises(ValueError, match="eri_lr_k0"):
         tengine.KSEngine(tgetxc.get_xc("camb3lyp"))._k_lr(
             {}, torch.zeros(2, 2), 0)
     nao = mol.meta.nao

@@ -6,6 +6,11 @@
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
         df_b3lyp df_camb3lyp df_vitc
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py properties
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_h8_hf \
+        pbc_h8_pbe pbc_h8_pbe0 pbc_h8_camb3lyp
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+        pbc_h8_gdf_pbe pbc_h8_gdf_camb3lyp
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_h2_grad
 
 For each functional named on the command line, one JSON line: the energy
 of dqc_tpu.KS(benzene/def2-SVP, grid=2, xc, SCFOptions(mixed=False)) (the
@@ -34,6 +39,23 @@ The names props_h2o_321g, props_h2o_sto3g and props_small run one part
 each. Takes tens of minutes on one core, most of it the Raman
 spectrum's compile.
 
+A name with the prefix "pbc_h8_" runs chip_smoke.py's periodic phase of
+that name: the 2x2x2 supercell of the simple-cubic H lattice at a = 3 Bohr
+(H8 in a 6-Bohr cube, h8_desc), 3-21G, grid "sg2", restricted, at the
+Gamma point, SCFOptions(mixed=False). "pbc_h8_hf" prints two lines,
+exxdiv "ewald" and None; "pbc_h8_<xc>" runs KS with that functional on
+the pair-Fourier-transform route, "pbc_h8_gdf_<xc>" after
+sol.densityfit(method="gdf") (autoaux). Each takes minutes on one core
+(the JAX package's Becke weights over the 465 virtual atoms of the
+wrapped grid) and about 12 GB.
+
+"pbc_h2_grad" prints jax.grad of the JAX package's periodic energy_fn in
+the atom positions, jitted in the positions alone, for HF and for lda_x on
+tests/test_torch_pbc.py's H2 force cell (H2 in a 5-Bohr cube, the two-s
+SOFT_H basis, grid 0; its grid statics frozen as in the port; SCF tol
+1e-12), one JSON line each; the test holds the port's energy_grad against
+these values. About a minute on one core.
+
 --factored: the JAX package's fit is contracted in factored form. Its
 build_df_theta returns j3c and v_inv = j2c^+ (eigh pseudo-inverse above
 1e-12 of the largest eigenvalue), and df_j/df_k contract j3c with the
@@ -42,7 +64,9 @@ explicit v_inv, which loses about eps * cond(j2c) to cancellation (up to
 dqc_tpu.scf.df.build_df_theta is replaced for the run by the same pseudo-
 inverse in factored form: j3c -> j3c V diag(w^-1/2) on the kept spectrum
 and v_inv -> I, so that df_j and df_k, unchanged, compute the same function
-without the cancellation. Nothing else of the JAX package changes.
+without the cancellation. Nothing else of the JAX package changes. The periodic
+fit (dqc_tpu.scf.pbc.build_pbc_gdf, eigh pseudo-inverse above 1e-10 of the
+largest eigenvalue of the G-space metric) is factored the same way.
 
 The JAX package refuses range separation on its blocked J/K route, which it
 takes at this size (its dense limit is 600 MiB); for a functional with
@@ -126,6 +150,85 @@ def factored_build_df_theta(meta, params, meta_aux, params_aux, omega=None):
     f = jnp.where(keep, 1.0 / jnp.sqrt(jnp.where(keep, w, 1.0)), 0.0)
     return {"j3c": jnp.einsum("ijp,pq->ijq", j3c, v * f[None, :]),
             "v_inv": jnp.eye(w.shape[0], dtype=w.dtype)}
+
+
+def factored_build_pbc_gdf(Fre, Fim, w, meta_aux, params_aux, Gv, *,
+                           madelung=None, ovlp=None):
+    """dqc_tpu.scf.pbc.build_pbc_gdf's pseudo-inverse in factored form
+    (module docstring): the same metric and 3-centre tensors, j3c -> j3c V
+    diag(w^-1/2) on the kept spectrum and v_inv -> I."""
+    from dqc_tpu.ops.pbcft import eval_ao_ft
+    nao, ng = Fre.shape[-1], Fre.shape[0]
+    cre, cim = eval_ao_ft(meta_aux, params_aux, jnp.asarray(Gv))
+    fre, fim = Fre.reshape(ng, nao * nao), Fim.reshape(ng, nao * nao)
+    j3c = (jnp.einsum("gx,g,gp->xp", fre, w, cre)
+           + jnp.einsum("gx,g,gp->xp", fim, w, cim)).reshape(nao, nao, -1)
+    v = (jnp.einsum("gp,g,gq->pq", cre, w, cre)
+         + jnp.einsum("gp,g,gq->pq", cim, w, cim))
+    ew, ev = jnp.linalg.eigh(0.5 * (v + v.T))
+    keep = ew > 1e-10 * jnp.max(ew)
+    f = jnp.where(keep, 1.0 / jnp.sqrt(jnp.where(keep, ew, 1.0)), 0.0)
+    out = {"j3c": jnp.einsum("ijp,pq->ijq", j3c, ev * f[None, :]),
+           "v_inv": jnp.eye(ew.shape[0], dtype=ew.dtype)}
+    if madelung is not None:
+        out["madelung"] = jnp.asarray(madelung)
+        out["ovlp"] = ovlp
+    return out
+
+
+def h8_desc(a=3.0, n=2):
+    """The n x n x n supercell of the simple-cubic H lattice of edge a
+    (chip_smoke.h_supercell)."""
+    return "; ".join(f"H {i * a} {j * a} {k * a}" for i in range(n)
+                     for j in range(n) for k in range(n))
+
+
+def pbc_h8(name, factored):
+    """chip_smoke.py's pbc_h8_* phases (module docstring)."""
+    from dqc_tpu.system.sol import Sol
+    rest = name[len("pbc_h8_"):]
+    gdf = rest.startswith("gdf_")
+    xc = rest[4:] if gdf else rest
+    runs = ([("hf", "ewald"), ("hf", None)] if xc == "hf"
+            else [(xc, "ewald")])
+    for xc, exxdiv in runs:
+        t0 = time.perf_counter()
+        sol = Sol(h8_desc(), np.eye(3) * 6.0, basis="3-21g", grid="sg2")
+        if gdf:
+            sol = sol.densityfit(method="gdf")
+        opts = JOptions(mixed=False, exxdiv=exxdiv)
+        qc = (dqc_tpu.HF(sol, opts=opts) if xc == "hf"
+              else dqc_tpu.KS(sol, xc=xc, opts=opts)).run()
+        print(json.dumps({
+            "system": "H8", "alattice_bohr": 6.0, "basis": "3-21g",
+            "grid": "sg2", "xc": xc, "exxdiv": exxdiv,
+            "route": "gdf" if gdf else "aft", "factored": factored,
+            "energy_ha": float(qc.energy()), "nao": sol.meta.nao,
+            "seconds": time.perf_counter() - t0,
+            "residual": getattr(qc, "_achieved_err", None), "tol": opts.tol,
+            "backend": jax.default_backend()}), flush=True)
+
+
+def pbc_h2_grad():
+    """jax.grad of the periodic energy_fn of the H2 force cell (module
+    docstring)."""
+    from dqc_tpu.system.sol import Sol
+    from test_torch_pbc import H2_FORCE_CELL
+    for xc in (None, "lda_x"):
+        t0 = time.perf_counter()
+        sol = Sol(**H2_FORCE_CELL)
+        opts = JOptions(mixed=False, tol=1e-12)
+        qc = (dqc_tpu.HF(sol, opts=opts) if xc is None
+              else dqc_tpu.KS(sol, xc=xc, opts=opts))
+        p = qc._all_params(with_fields=False)
+
+        def e_of_pos(pos):
+            return qc.energy_fn(dict(p, basis=dict(p["basis"], atompos=pos)))
+        g = jax.jit(jax.grad(e_of_pos))(p["basis"]["atompos"])
+        print(json.dumps({
+            "system": "H2 force cell", "xc": xc, "grad": _lists(g),
+            "seconds": time.perf_counter() - t0,
+            "backend": jax.default_backend()}), flush=True)
 
 
 VITAMIN_C = """O 0.1761 -2.0912 1.2179; O -2.5390 0.1686 -2.6197;
@@ -226,7 +329,15 @@ def main(names, factored=False):
     if factored:
         from dqc_tpu.scf import df as jdf
         jdf.build_df_theta = factored_build_df_theta
+        from dqc_tpu.scf import pbc as jpbc
+        jpbc.build_pbc_gdf = factored_build_pbc_gdf
     for name in names:
+        if name == "pbc_h2_grad":
+            pbc_h2_grad()
+            continue
+        if name.startswith("pbc_h8_"):
+            pbc_h8(name, factored)
+            continue
         if name in ("props_h2o_321g", "props_h2o_sto3g"):
             props_h2o("3-21G" if name.endswith("321g") else "STO-3G")
             continue
