@@ -30,7 +30,13 @@ Gamma point (`Sol`, the simple-cubic H lattice of edge 3 Bohr, 3-21G, grid
 "sg2"): UKS-PBE of its 3x3x3 supercell H27 (nao 54, 664,012 wrapped grid
 points) on the pair-transform route, K2 and K3 at that shape, and the 2x2x2
 supercell H8 (HF, PBE, PBE0, CAM-B3LYP, the periodic fit) against JAX-CPU
-anchors, with its forces. Any failed check or exception
+anchors, with its forces; then periodic cells with k-points (`Sol(...,
+kpts=...)`, scf/kpbc.py): RKS-PBE of H8 on the Gamma-centred 3x3x3 mesh (27
+k-points; K2 and K3 once per k-point per Fock build on the real embedding of
+the Bloch tables, (195,894, 32)), with `band_energies`, Bloch's theorem
+against the Gamma path on the tripled supercell H24, every k-point route on
+H8's three-point mesh against JAX-CPU anchors, PBE0 on the 2x2x2 mesh, and
+the forces of a small k-point cell. Any failed check or exception
 ends the run with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
@@ -73,9 +79,21 @@ their plain versions and timed beside their bound; a second SCF on the same
 theta and a second pair-transform build against the first, bit for bit),
 `pbc_h8_hf` (exxdiv "ewald" and None), `pbc_h8_pbe`, `pbc_h8_pbe0`,
 `pbc_h8_camb3lyp`, `pbc_h8_gdf_pbe`, `pbc_h8_gdf_camb3lyp`,
-`pbc_h8_forces` with `pbc_h8_forces_fd[hf]` and `[pbe]`, `small`,
+`pbc_h8_forces` with `pbc_h8_forces_fd[hf]` and `[pbe]`, `pbc_k_h8_pbe`
+(stage seconds, iterations, the idle share of a steady iteration,
+launches, peak, the reckoned sizes beside the measured ones, the grid's
+electron count, K2/K3 on two embedded tables against their plain versions
+and timed beside their bound, a second SCF on the same theta bit for bit,
+band energies at mesh points against the SCF's eigenvalues and at k against
+-k), `pbc_k_bloch` (HF and PBE, k-mesh and H24 records and their
+difference per cell), `pbc_k_h8_3mesh_*` (HF with exxdiv "ewald" and None,
+PBE, PBE0, CAM-B3LYP, SCAN, UKS-PBE, the k-point fit with PBE),
+`pbc_k_h8_pbe0_222` (with the exchange stack's bytes and the band
+energies at an off-mesh k against -k), `pbc_k_forces` with
+`pbc_k_forces_fd[hf]` and `[pbe]`, `small`,
 `kernels` (K2's and K3's rows also have their times at H27's shape,
-`pbc_h27`; K3's row
+`pbc_h27`, and at the k-point main path's embedded shape,
+`pbc_k_h8_embedded`; K3's row
 also has its registers and spills from this run's ptxas report; every row
 its launches on every path, K1's also on the erf tensor: each path's own
 SCF, with those of the atomic SCFs of its SAD start apart; and those inside
@@ -115,7 +133,7 @@ from dqc_tpu_torch.ops.hopper_jk import (                     # noqa: E402
     ds_jk, ds_jk_kplanes, ds_jk_reference)
 from dqc_tpu_torch.ops.hopper_xc import (                     # noqa: E402
     ds_dens_gga, ds_dens_reference, ds_vxc_gga, ds_vxc_reference)
-from dqc_tpu_torch.scf import qccalc                         # noqa: E402
+from dqc_tpu_torch.scf import kpbc, qccalc                   # noqa: E402
 from dqc_tpu_torch.scf.df import df_j, df_k                  # noqa: E402
 from dqc_tpu_torch.scf.eigh import safe_eigh                  # noqa: E402
 from dqc_tpu_torch.xc import integrate                        # noqa: E402
@@ -269,6 +287,55 @@ PBC_GATE_HA = 1e-8
 # frozen at the cell's construction, so both sides see the same function)
 PBC_DISTORT = (0.21, -0.13, 0.08)
 PBC_FD_COMPONENTS = {"hf": ((1, 0), (1, 1), (5, 2)), "pbe": ((1, 0),)}
+# periodic cells with k-points (scf/kpbc.py). The main path: RKS-PBE of H8 on
+# the Gamma-centred 3x3x3 Monkhorst-Pack mesh (27 k-points), the same
+# crystal as an H216 supercell at Gamma. Its reckoned sizes: 98,900 G
+# (H27's 333,715 x 8/27), Qre and Qim 10.9 GB together, about 197k wrapped
+# points (H27's 664,012 x 8/27) and 5.4 GB of embedded Bloch tables
+K_MAIN_MESH = (3, 3, 3)
+K_MAIN_SHAPE = (27, 16)                    # k-points, nao
+K_BAND_GATE_HA = 1e-10     # band energies against the SCF's eigenvalues
+K_TRACE_GATE = 1e-8        # sum_k w_k tr(D^k S^k) = N
+# Bloch's theorem at complex phases: H8 on a 3x1x1 mesh against the Gamma
+# path on the tripled supercell H24 (18 x 6 x 6 Bohr), per H8 cell, at the
+# tolerances of tests/test_pbc.py:256-269 (HF) and :410-441 (LDA; here PBE):
+# the wrapped grids of the two cells differ
+K_BLOCH_GATES_HA = {"hf": 1e-6, "pbe": 5e-6}
+# H8 on the three-point mesh k = (n pi / 9, 0, 0) Bohr^-1, n = 0, 1, 2 (the
+# two-point mesh along x does not converge: with the same occupations at
+# every k, the JAX package's own PBE SCF there stops at a residual of 3e-2):
+# JAX-CPU values of dqc_tpu.HF/KS(Sol(H8, 6 eye(3), "3-21g", grid="sg2",
+# kpts=the mesh), SCFOptions(mixed=False)), float64 on an x86-64 host,
+# made by
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_k3_hf \
+#       pbc_k3_pbe pbc_k3_pbe0 pbc_k3_camb3lyp pbc_k3_scan pbc_k3_uks_pbe
+#   JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+#       pbc_k3_gdf_pbe
+# (the fit held to the JAX package's k-point fit contracted in factored
+# form, as the port's is; the seconds of each run, two or three side by
+# side on one host, beside it)
+PBC_K3_ANCHORS_HA = {"hf_ewald": -3.8873836286496077,      # 4070 s
+                     "hf_none": -3.3816021524510154,       # 3780 s
+                     "pbe": -4.21935798374394,             # 587 s
+                     "pbe0": -4.198261494509878,           # 4045 s
+                     "scan": -4.222619361855116,           # 572 s
+                     "uks_pbe": -4.21935798374394,         # 615 s
+                     "gdf_pbe": -4.219656531138137,        # 574 s
+                     "camb3lyp": -4.163696202459419}       # 3267 s
+# the k-point force cell: H2 in a 3-Bohr cube, 3-21G, grid "sg2", the
+# two-point mesh along x; central differences of the same energy_fn at
+# these (atom, axis) components. jax.grad of the JAX package's k-point
+# energy_fn on this cell does not fit a 62 GB host (its HF gradient was
+# killed at 34.5 GB), so no JAX value is stored
+K_FORCE_DESC = "H 0.1 -0.05 0.02; H 1.45 0.12 -0.1"
+# the hybrid on the 2x2x2 mesh: H8's cell (6 Bohr, 3-21G, "sg2") with its
+# atoms paired into H2 along x, at these x (Bohr). The same sizes as H8
+# (nao 16, 98,985 G, a 25.9 GB exchange stack); H8 itself is a metal there,
+# and with the same occupations at every k its PBE0 SCF stalls at a residual
+# of 1.3e-7 (PBE: 5e-2)
+K_PAIRED_X = (0.8, 2.2)
+K_FORCE_MESH = ((0.0, 0.0, 0.0), (np.pi / 3.0, 0.0, 0.0))
+K_FORCE_COMPONENTS = ((0, 0), (1, 1), (1, 2))
 
 
 @contextmanager
@@ -2450,6 +2517,385 @@ def pbc_h8_forces(smi_line):
     return out
 
 
+def mp_mesh(dims, edge):
+    """The Gamma-centred Monkhorst-Pack mesh of a cubic cell of edge `edge`
+    (Bohr): k = 2 pi / edge (i / nx, j / ny, k / nz), (nk, 3) Bohr^-1."""
+    b = 2.0 * np.pi / edge
+    return np.array([[b * i / dims[0], b * j / dims[1], b * k / dims[2]]
+                     for i in range(dims[0]) for j in range(dims[1])
+                     for k in range(dims[2])])
+
+
+def k_trace(calc):
+    """sum_k w_k tr(D^k S^k) of a k-point calc (spins summed)."""
+    theta = calc._theta
+    dmc = kpbc.join(calc._dm)
+    return float(torch.einsum("k,...kij,kji->", theta["wk"].to(dmc.dtype),
+                              dmc, theta["ovlp"]).real)
+
+
+def k_plain_energy(calc):
+    """The energy of a k-point calc at its converged state with E_xc through
+    the plain version (the JAX package's complex einsums on the Bloch
+    tables) in place of K2 on the real embedding; J, K and Vne are plain
+    torch on either path."""
+    eng, theta, x = calc.engine, calc._theta, calc._dm
+    with torch.no_grad():
+        j, k = eng.jk_parts(x, theta)
+        exc = eng.exc_vxc_plain(x, theta)[0] if eng.semilocal else None
+        return float(eng.energy_from_parts(x, j, k, theta, exc=exc))
+
+
+K_STATS = PBC_STATS + ("nk", "exx_s")
+
+
+def pbc_k_phase(name, sol, xc, anchor, smi_line, opts=None, restricted=None,
+                gate=PBC_GATE_HA):
+    """One k-point path from Sol to the energy (HF for xc None, else KS) with
+    the launch counts set to 0 just before it and read just after. Gates:
+    the SCF converged, the energy within `gate` of its anchor (when it has
+    one), the plain path within KS_PLAIN_GATE_HA, sum_k w_k tr(D^k S^k) =
+    N to K_TRACE_GATE, and the launches: no K1, and for a GGA or meta-GGA
+    K2 and K3 once per k-point and spin per Fock build, K2 once more per
+    k-point and spin for the energy. Returns (calc, record)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    kw = {} if restricted is None else {"restricted": restricted}
+    calc = (dq.HF(sol, opts=opts, **kw) if xc is None
+            else dq.KS(sol, xc=xc, opts=opts, **kw))
+    reset_counts()
+    calc.run()
+    launches = path_counts()
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    st, theta, eng = calc.stats, calc._theta, calc.engine
+    e = float(calc.energy())
+    e_plain = k_plain_energy(calc)
+    profile = iteration_profile(eng, theta, calc._dm, smi_line)
+    nelec = sum(sol.nelec)
+    trace = k_trace(calc)
+    iters = st["iterations"]
+    rec = {"nao": sol.meta.nao, "natm": len(sol.zs_int), "xc": xc,
+           "nk": eng.nk, "kpts": np.asarray(sol.kpts).tolist(),
+           "exxdiv": calc.opts.exxdiv, "polarized": eng.polarized,
+           **{k: st.get(k) for k in K_STATS},
+           "iterations": iters,
+           "s_per_iteration": st["scf_s"] / max(iters, 1),
+           "total_s": total_s, "residual": st["residual"],
+           "residual_history": st["residual_history"][:iters].tolist(),
+           "tol": calc.opts.tol, "energy_ha": e, "energy_plain_ha": e_plain,
+           "anchor_ha": anchor,
+           "energy_minus_anchor_ha": None if anchor is None else e - anchor,
+           "launches": launches, "fock_builds": iters + 1,
+           "iteration_profile": profile, "trace_dm_ovlp": trace,
+           "peak_device_bytes": peak, "card": smi_line}
+    if "grid" in theta:
+        dens = eng._dens_plain(kpbc.join(calc._dm), theta)
+        dens = [dens["u"], dens["d"]] if eng.polarized else [dens]
+        rec["sum_dvol_rho"] = float(sum(
+            torch.sum(theta["grid"]["dvol"] * d["rho"]) for d in dens))
+    if not np.isfinite(e):
+        fail(f"{name}: energy not finite")
+    if not st["residual"] <= calc.opts.tol:
+        fail(f"{name}: residual {st['residual']:.3e} above tol "
+             f"{calc.opts.tol}")
+    if anchor is not None and abs(e - anchor) > gate:
+        fail(f"{name}: energy {e!r} vs anchor {anchor!r} (gate {gate})")
+    if abs(e - e_plain) > KS_PLAIN_GATE_HA:
+        fail(f"{name}: kernel-path energy {e!r} vs plain-path {e_plain!r}")
+    if abs(trace - nelec) > K_TRACE_GATE:
+        fail(f"{name}: sum_k w_k tr(D S) = {trace!r}, expected {nelec}")
+    m = (eng.nk * (2 if eng.polarized else 1)
+         * int(eng.semilocal and eng.xc.family >= 2))
+    want_it = {"ds_jk": 0, "ds_dens_gga": m, "ds_vxc_gga": m,
+               "ds_jk_eri_lr": 0}
+    per_it = profile["port_kernel_launches_per_iteration"]
+    if per_it != want_it:
+        fail(f"{name}: one iteration launched {per_it}, expected {want_it}")
+    builds = iters + 1
+    want = {"ds_jk": 0, "ds_dens_gga": builds * m + m,
+            "ds_vxc_gga": builds * m, "ds_jk_eri_lr": 0}
+    if launches != want:
+        fail(f"{name}: the SCF launched {launches} for {builds} Fock builds "
+             f"and its energy, expected {want}")
+    return calc, rec
+
+
+def k_band_checks(name, calc, kb, pairs, smi_line):
+    """band_energies at the band points kb: each (band index, mesh index)
+    of `pairs` against the SCF's own eigenvalues at that mesh point, and
+    the first two band points against each other (k and -k: time
+    reversal), all to K_BAND_GATE_HA."""
+    eng, theta, x = calc.engine, calc._theta, calc._dm
+    t0 = time.perf_counter()
+    band = dq.band_energies(calc, kb)
+    torch.cuda.synchronize()
+    rec = {"kpts_band": np.asarray(kb).tolist(),
+           "seconds": time.perf_counter() - t0}
+    with torch.no_grad():
+        eps = eng.eigenvalues(eng.fock(x, theta), theta)
+    # directions the basis drops at a k are pinned near LARGE (1e7): left
+    # out, their eigenvalues carry rounding of that size
+    def gap(a, b):
+        keep = (a.abs() < 1e6) & (b.abs() < 1e6)
+        return float(torch.where(keep, a - b, torch.zeros_like(a))
+                     .abs().max())
+    rec["vs_scf"] = [gap(band[..., b, :], eps[..., i, :]) for b, i in pairs]
+    rec["time_reversal"] = gap(band[..., 0, :], band[..., 1, :])
+    rec["n_pinned"] = int((band.abs() >= 1e6).sum())
+    rec["band_ha"] = band.detach().cpu().numpy().tolist()
+    for b, err in zip(pairs, rec["vs_scf"]):
+        if not err <= K_BAND_GATE_HA:
+            fail(f"{name}: band energies at band point {b[0]} differ from "
+                 f"the SCF's at mesh point {b[1]} by {err:.3e}")
+    if not rec["time_reversal"] <= K_BAND_GATE_HA:
+        fail(f"{name}: band energies at k and -k differ by "
+             f"{rec['time_reversal']:.3e}")
+    return rec
+
+
+def pbc_k_h8_pbe(smi_line):
+    """The main path of the k-point slice at full width: RKS-PBE of H8 (a
+    6-Bohr cube, 3-21G, grid "sg2", nao 16) on the Gamma-centred 3x3x3 mesh,
+    K2 and K3 once per k-point per Fock build on the real embedding of its
+    Bloch tables. Gates besides pbc_k_phase's: the shapes, the grid's
+    electron count, K2/K3 on the embedded tables at this shape against
+    their plain versions (bit-identical repeats), a second SCF on the same
+    theta (the same bits), band_energies at mesh points against the SCF's
+    eigenvalues and at k against -k. Recorded: the reckoned sizes, and
+    K2's and K3's times at the embedded shape beside their bound."""
+    mesh = mp_mesh(K_MAIN_MESH, 2 * PBC_A)
+    sol = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                 grid="sg2", kpts=mesh)
+    calc, rec = pbc_k_phase("pbc_k_h8_pbe", sol, "pbe", None, smi_line)
+    eng, theta, grid, x = calc.engine, calc._theta, calc._theta["grid"], \
+        calc._dm
+    nk, ng, m2 = grid["ao"].shape
+    nao = sol.meta.nao
+    rec["sizes"] = {
+        "nk": nk, "nao": nao, "n_gvectors": rec["n_gvectors"], "ngrid": ng,
+        "q_bytes": 2 * theta["Qre"].numel() * 8,
+        "bloch_table_bytes": sum(grid[key].numel() * 8 for key in
+                                 ("ao", "ao_grad", "ao_lapl") if key in grid),
+        "reckoned": {"n_gvectors": 98900, "q_bytes": 10.9e9,
+                     "ngrid": 197000, "bloch_table_bytes": 5.4e9}}
+    rec["sum_dvol_rho_gamma_h8"] = 7.99996
+    # a second SCF on the same theta: the same bits?
+    calc2 = dq.KS(sol, xc="pbe")
+    calc2._theta = theta
+    calc2.run()
+    rec["energy_bit_identical_second_scf"] = (
+        float(calc2.energy()) == rec["energy_ha"]
+        and bool(torch.equal(calc2._dm, x)))
+    rec["iterations_second_scf"] = calc2.stats["iterations"]
+    del calc2
+    # band energies: (1,1,1)/3 of the mesh and its inverse, and Gamma
+    i111 = 13
+    rec["bands"] = k_band_checks(
+        "pbc_k_h8_pbe", calc, np.stack([mesh[i111], -mesh[i111], mesh[0]]),
+        ((0, i111), (1, i111), (2, 0)), smi_line)
+    free_device()
+    # K2 and K3 on the embedded tables of two k-points: the converged D^k
+    # embedded with its weight, and the real pointwise potentials at the
+    # converged density
+    dmc = kpbc.join(x)
+    memb = kpbc._embed(dmc, theta["wk"])
+    dens = eng._dens_plain(dmc, theta)
+    _, vbar = integrate._pointwise_adjoints(eng.xc, dens, grid["dvol"],
+                                            False, None)
+    vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+    checks = []
+    for k in (0, i111):
+        ao, ag = grid["ao"][k], grid["ao_grad"][k]
+        checks.append(check_dens(ao, ag, memb[k].contiguous(),
+                                 f"H8 3x3x3 embedded table k={k}, w_k M^k"))
+        checks.append(check_vxc(ao, ag, vr, vg,
+                                f"H8 3x3x3 embedded table k={k}, real "
+                                "vrho/vgrad"))
+    ao, ag, d0 = grid["ao"][i111], grid["ao_grad"][i111], \
+        memb[i111].contiguous()
+
+    def dens_library():
+        c = ao @ d0.T
+        (c * ao).sum(-1)
+        2.0 * (ag * c).sum(-1)
+
+    def vxc_library():
+        w = vr[:, None] * ao + 2.0 * torch.einsum("dg,dgi->gi", vg, ag)
+        w.T @ ao
+
+    k2_ms, k2_plain = time_turns(lambda: ds_dens_gga(ao, ag, d0),
+                                 lambda: ds_dens_reference(ao, ag, d0))
+    k3_ms, k3_plain = time_turns(lambda: ds_vxc_gga(ao, ag, vr, vg),
+                                 lambda: ds_vxc_reference(ao, ag, vr, vg))
+    k2_bytes = 8 * (4 * ng * m2 + m2 * m2 + 4 * ng)
+    k3_bytes = 8 * (4 * ng * m2 + 4 * ng + m2 * m2)
+    flops = 2 * ng * m2 * m2 + 8 * ng * m2
+    kern = {}
+    for name, ms, plain, lib, nbytes, cks in (
+            ("ds_dens_gga", k2_ms, k2_plain, time_ms(dens_library, 20),
+             k2_bytes, checks[0::2]),
+            ("ds_vxc_gga", k3_ms, k3_plain, time_ms(vxc_library, 20),
+             k3_bytes, checks[1::2])):
+        b, by = bound(nbytes, flops)
+        kern[name] = {"ng": ng, "nao_embedded": m2, "ms": min(ms),
+                      "ms_runs": ms, "plain_ms": min(plain),
+                      "plain_ms_runs": plain, "library_ms": lib,
+                      "bytes_moved": nbytes, "flops": flops, "bound_ms": b,
+                      "bound_by": by,
+                      "gbytes_per_s": nbytes / (min(ms) * 1e-3) / 1e9,
+                      "max_abs_err": max(v for c in cks for k, v in c.items()
+                                         if k.endswith("_max_abs_err")),
+                      "launches": rec["launches"][name],
+                      "launches_per_fock_build": nk, "card": smi_line}
+    rec.update(kernel_checks=checks, kernels=kern)
+    emit({"pbc_k_h8_pbe": rec})
+    if (nk, nao) != K_MAIN_SHAPE or m2 != 2 * nao:
+        fail(f"pbc_k_h8_pbe: (nk, nao) = {(nk, nao)}, tables of width {m2}; "
+             f"expected {K_MAIN_SHAPE}")
+    if abs(rec["sum_dvol_rho"] - 8) > 8 * PBC_NELEC_GATE:
+        fail(f"pbc_k_h8_pbe: sum dvol rho = {rec['sum_dvol_rho']!r}, "
+             f"expected 8 within {8 * PBC_NELEC_GATE}")
+    if not rec["energy_bit_identical_second_scf"]:
+        fail("pbc_k_h8_pbe: a second SCF on the same theta gave other bits")
+    del calc, theta, grid, x, dmc, memb, dens, vbar, vr, vg, ao, ag, d0
+    return rec
+
+
+def pbc_k_bloch(smi_line):
+    """Bloch's theorem at complex phases on the card: H8 on a 3x1x1 mesh
+    against the Gamma path on H24, the supercell tripled along x, per H8
+    cell, HF and PBE (K_BLOCH_GATES_HA)."""
+    mesh = mp_mesh((3, 1, 1), 2 * PBC_A)
+    h8 = [[float(v) for v in a.split()[1:]] for a in h_supercell(2).split(";")]
+    h24 = "; ".join(f"H {p[0] + 2 * PBC_A * c} {p[1]} {p[2]}"
+                    for c in range(3) for p in h8)
+    out = {}
+    for key, xc in (("hf", None), ("pbe", "pbe")):
+        sk = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                    grid="sg2", kpts=mesh)
+        calc, rk = pbc_k_phase(f"pbc_k_bloch[{key}_3x1x1]", sk, xc, None,
+                               smi_line)
+        del calc
+        free_device()
+        s24 = dq.Sol(h24, np.diag([6 * PBC_A, 2 * PBC_A, 2 * PBC_A]),
+                     basis="3-21g", grid="sg2")
+        calc, r24 = pbc_phase(f"pbc_k_bloch[{key}_h24]", s24, xc, None,
+                              smi_line)
+        del calc
+        free_device()
+        diff = rk["energy_ha"] - r24["energy_ha"] / 3
+        out[key] = {"kmesh": rk, "h24": r24, "per_cell_diff_ha": diff,
+                    "gate_ha": K_BLOCH_GATES_HA[key]}
+        if not abs(diff) <= K_BLOCH_GATES_HA[key]:
+            fail(f"pbc_k_bloch[{key}]: k-mesh {rk['energy_ha']!r} vs H24 / 3 "
+                 f"{r24['energy_ha'] / 3!r} (gate {K_BLOCH_GATES_HA[key]})")
+    emit({"pbc_k_bloch": out})
+    return out
+
+
+K3_CASES = (("hf_ewald", None, "ewald", None, False),
+            ("hf_none", None, None, None, False),
+            ("pbe", "pbe", "ewald", None, False),
+            ("pbe0", "pbe0", "ewald", None, False),
+            ("camb3lyp", "camb3lyp", "ewald", None, False),
+            ("scan", "scan", "ewald", None, False),
+            ("uks_pbe", "pbe", "ewald", False, False),
+            ("gdf_pbe", "pbe", "ewald", None, True))
+
+
+def pbc_k_h8_3mesh(smi_line):
+    """Every k-point route on H8 with the three-point mesh along x against
+    its JAX-CPU anchor (PBC_GATE_HA): HF with exxdiv "ewald" and None, PBE,
+    PBE0, CAM-B3LYP (LR = full - SR), SCAN, UKS-PBE and the k-point fit
+    with PBE. Returns {phase: record}."""
+    out = {}
+    for key, xc, exxdiv, restricted, gdf in K3_CASES:
+        name = f"pbc_k_h8_3mesh_{key}"
+        sol = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                     grid="sg2", kpts=mp_mesh((3, 1, 1), 2 * PBC_A))
+        if gdf:
+            sol = sol.densityfit(method="gdf")
+        calc, rec = pbc_k_phase(name, sol, xc, PBC_K3_ANCHORS_HA[key],
+                                smi_line, opts=dq.SCFOptions(exxdiv=exxdiv),
+                                restricted=restricted)
+        if "exx" in calc._theta:
+            rec["madelung"] = calc._theta["exx"]["madelung"]
+        if gdf and (calc.jk_mode != "gdf" or "kdf" not in calc._theta):
+            fail(f"{name}: route {calc.jk_mode!r}, expected 'gdf'")
+        out[name] = rec
+        emit({name: rec})
+        del calc
+        free_device()
+    return out
+
+
+def pbc_k_h8_pbe0_222(smi_line):
+    """A hybrid at a real mesh: PBE0 on the 2x2x2 mesh of H8's cell with its
+    atoms paired into H2 along x (K_PAIRED_X; the mixed (k, k') pair-
+    transform stack of its exchange, 25.9 GB, as for H8). Gates: those of
+    pbc_k_phase, and the band energies at an off-mesh k against -k (time
+    reversal). Recorded: seconds, the stack's bytes, peak memory."""
+    mesh = mp_mesh((2, 2, 2), 2 * PBC_A)
+    paired = "; ".join(f"H {x} {PBC_A * j} {PBC_A * k}" for x in K_PAIRED_X
+                       for j in range(2) for k in range(2))
+    sol = dq.Sol(paired, np.eye(3) * 2 * PBC_A, basis="3-21g", grid="sg2",
+                 kpts=mesh)
+    calc, rec = pbc_k_phase("pbc_k_h8_pbe0_222", sol, "pbe0", None, smi_line)
+    rec["exx_stack_bytes"] = calc._theta["exx"]["A"].numel() * 16
+    kb = 2 * np.pi / (2 * PBC_A) * np.array([[0.25, 0.1, 0.0],
+                                             [-0.25, -0.1, 0.0]])
+    rec["bands"] = k_band_checks("pbc_k_h8_pbe0_222", calc, kb, (), smi_line)
+    emit({"pbc_k_h8_pbe0_222": rec})
+    del calc
+    return rec
+
+
+def pbc_k_forces(smi_line):
+    """HF and PBE forces of the k-point force cell by implicit
+    differentiation on the card, against central differences of the same
+    energy_fn (FD_GATE); the sum of the forces below 1e-8."""
+    out = {}
+    for key, xc in (("hf", None), ("pbe", "pbe")):
+        sol = dq.Sol(K_FORCE_DESC, np.eye(3) * PBC_A, basis="3-21g",
+                     grid="sg2", kpts=np.array(K_FORCE_MESH))
+        calc = dq.HF(sol) if xc is None else dq.KS(sol, xc=xc)
+        calc.run()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        g = calc.energy_grad()
+        launches = _launch_counts()
+        F = -g["basis"]["atompos"].detach().cpu().numpy()
+        sumF = float(np.abs(F.sum(0)).max())
+        rec = {"xc": xc, "energy_ha": float(calc.energy()),
+               "scf_iterations": calc.stats["iterations"],
+               "grad_s": calc.stats["grad_s"],
+               "grad_forward_s": calc.stats["grad_forward_s"],
+               "grad_backward_s": calc.stats["grad_backward_s"],
+               "gmres": calc.stats["gmres"], "launches_in_gradient": launches,
+               "peak_device_bytes_gradient": torch.cuda.max_memory_allocated(),
+               "max_abs_sum_F": sumF, "forces": F.tolist(), "card": smi_line}
+        central_differences(f"pbc_k_forces_fd[{key}]", calc, F,
+                            K_FORCE_COMPONENTS)
+        out[key] = rec
+        if not np.all(np.isfinite(F)) or F.shape != (2, 3):
+            fail(f"pbc_k_forces[{key}]: forces not finite or of shape "
+                 f"{F.shape}")
+        if sumF > 1e-8:
+            fail(f"pbc_k_forces[{key}]: sum of the forces {sumF:.3e}")
+        if xc is not None and not (launches["ds_dens_gga"] > 0
+                                   and launches["ds_vxc_gga"] > 0):
+            fail(f"pbc_k_forces[{key}]: kernels inside the gradient: "
+                 f"{launches}")
+        del calc, g
+        free_device()
+    emit({"pbc_k_forces": out})
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -2896,6 +3342,22 @@ def main():
     free_device()
     pbc_force_rec = pbc_h8_forces(smi_line)
     free_device()
+    # 15. periodic cells with k-points: the slice's main path at full width
+    # (RKS-PBE of H8 on the 3x3x3 mesh, K2 and K3 once per k-point per Fock
+    # build on the embedded Bloch tables), Bloch's theorem against the
+    # Gamma path, every route on the two-point mesh against JAX-CPU
+    # anchors, a hybrid on the 2x2x2 mesh, and forces
+    k_main = pbc_k_h8_pbe(smi_line)
+    xc_checks += k_main["kernel_checks"]
+    free_device()
+    k_bloch = pbc_k_bloch(smi_line)
+    free_device()
+    k3_recs = pbc_k_h8_3mesh(smi_line)
+    free_device()
+    k222 = pbc_k_h8_pbe0_222(smi_line)
+    free_device()
+    k_force = pbc_k_forces(smi_line)
+    free_device()
     by_path = {"main_path_hf": hf_launches, "main_path_ks": ks_launches,
                "forces_gradient": force_rec["launches_in_gradient"],
                "cam_b3lyp": cam_rec["launches"],
@@ -2920,7 +3382,16 @@ def main():
                **{ph: r["launches"] for ph, r in h8_recs.items()
                   if ph != "pbc_h8_hf"},
                **{f"pbc_h8_forces_gradient[{k}]": r["launches_in_gradient"]
-                  for k, r in pbc_force_rec.items()}}
+                  for k, r in pbc_force_rec.items()},
+               "pbc_k_h8_pbe": k_main["launches"],
+               **{f"pbc_k_bloch[{k}_3x1x1]": r["kmesh"]["launches"]
+                  for k, r in k_bloch.items()},
+               **{f"pbc_k_bloch[{k}_h24]": r["h24"]["launches"]
+                  for k, r in k_bloch.items()},
+               **{ph: r["launches"] for ph, r in k3_recs.items()},
+               "pbc_k_h8_pbe0_222": k222["launches"],
+               **{f"pbc_k_forces_gradient[{k}]": r["launches_in_gradient"]
+                  for k, r in k_force.items()}}
 
     sad_by_path = {"main_path_hf": hf_sad, "main_path_ks": ks_sad,
                    "cam_b3lyp": cam_rec["launches_sad"],
@@ -3023,6 +3494,7 @@ def main():
         "gbytes_per_s": k2_bytes / (min(k2_ms) * 1e-3) / 1e9,
         "gflop_per_s": k2_flops / (min(k2_ms) * 1e-3) / 1e9,
         "pbc_h27": h27_rec["kernels"]["ds_dens_gga"],
+        "pbc_k_h8_embedded": k_main["kernels"]["ds_dens_gga"],
         "card": smi_line,
     }, {
         "name": "ds_vxc_gga", "route": "cuda",
@@ -3046,6 +3518,7 @@ def main():
         "gflop_per_s": k3_flops / (min(k3_ms) * 1e-3) / 1e9,
         "resources": ptxas_summary(builds["ds_vxc_gga"]["log"]),
         "pbc_h27": h27_rec["kernels"]["ds_vxc_gga"],
+        "pbc_k_h8_embedded": k_main["kernels"]["ds_vxc_gga"],
         "card": smi_line,
     }], "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

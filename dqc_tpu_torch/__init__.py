@@ -22,7 +22,11 @@ density and V_xc of a GGA or meta-GGA come from two more kernels
 solids (Sol) run at the Gamma point: J, K and the nuclear attraction from
 analytic pair Fourier transforms with Ewald and Madelung terms, or a
 Gaussian fit in the periodic Coulomb metric (sol.densityfit(method="gdf")),
-and the XC terms on a cell-wrapped grid through the same two kernels.
+and the XC terms on a cell-wrapped grid through the same two kernels; or
+with k-points (Sol(..., kpts=...)): the complex k-point SCF on Bloch pair
+transforms and Bloch grid tables (the grid kernels on their real
+embedding), k-point exact exchange, and band energies at any k
+(band_energies).
 
 Calculations run on the CUDA card unless the caller passes device="cpu";
 without a card and without that argument the entry points raise.
@@ -38,6 +42,7 @@ from .system.mol import Mol                      # noqa: F401
 from .system.sol import Sol                      # noqa: F401
 from .scf.qccalc import HF, KS, SCF_QCCalc       # noqa: F401
 from .scf.fixed_point import SCFOptions          # noqa: F401
+from .scf.kpbc import band_energies              # noqa: F401
 from .xc import get_xc, get_libxc                # noqa: F401
 from .api import properties                      # noqa: F401
 from .api.properties import (                    # noqa: F401
@@ -45,13 +50,3 @@ from .api.properties import (                    # noqa: F401
     equadrupole, eoctupole, polarizability, optimal_geometry,
     lowest_eival_orb_hessian, is_orb_min)
 
-# names of the JAX package that later parts of the port bring
-_NOT_PORTED = {
-    "band_energies": "k-point periodic systems (ROADMAP A15)",
-}
-
-
-def __getattr__(name):
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"not ported yet: {name} — {_NOT_PORTED[name]}")
-    raise AttributeError(f"module 'dqc_tpu_torch' has no attribute {name!r}")

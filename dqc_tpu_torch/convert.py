@@ -4,7 +4,9 @@ The caller turns the JAX package's `mol.params` tree, a `theta` dict or the
 parameter tree of a CustomXC into numpy arrays (np.asarray on the JAX
 side); these functions return the port's tensors on the requested device. This module imports neither jax nor
 the JAX package. With it a test can put the JAX package's integrals through
-the port's engine, and compare one stage at a time.
+the port's engine, and compare one stage at a time. The k-point theta of
+kpbc_theta_from_numpy also takes complex arrays, as complex128 or as (re,
+im) pairs.
 """
 from __future__ import annotations
 
@@ -62,6 +64,79 @@ def theta_from_numpy(theta_np: dict, device=None) -> dict:
     for key, df in theta_np.items():
         if key == "df" or key.startswith("df_sr"):
             out[key] = df_from_numpy(df, device)
+    return out
+
+
+def _c128(x, device):
+    """A complex128 tensor from a complex numpy array or an (re, im) pair."""
+    if isinstance(x, (tuple, list)):
+        x = np.asarray(x[0], dtype=np.float64) + 1j * np.asarray(
+            x[1], dtype=np.float64)
+    return torch.tensor(np.asarray(x, dtype=np.complex128), device=device)
+
+
+def _embedded(x):
+    """[Re | Im] on the last axis of a complex numpy array or (re, im)."""
+    if isinstance(x, (tuple, list)):
+        re, im = (np.asarray(v, dtype=np.float64) for v in x)
+    else:
+        re, im = np.real(x), np.imag(x)
+    return np.concatenate([re, im], axis=-1)
+
+
+def kpbc_theta_from_numpy(theta_np: dict, device=None) -> dict:
+    """`theta` of the port's k-point engine (scf/kpbc.py) from a theta of
+    the JAX package's KPBCEngine as numpy. Complex arrays may come as
+    complex128 arrays or as (re, im) pairs. Takes hcore, ovlp, X (complex
+    (nk, nao, nao)), keep, enuc, occ, wk, wcoul, the Bloch transforms Qre and
+    Qim (nk, ng, nao, nao), the grid ({dvol, coords, ao, ao_grad, ao_lapl}
+    with complex tables (nk, ng, nao), (nk, ng, 3, nao), (nk, ng, nao),
+    stored in the port's real embedding [Re | Im]: (nk, ng, 2 nao) and
+    (nk, 3, ng, 2 nao)), the exchange stack exx ({Are, Aim, wq, wqsr{i},
+    madelung} -> {A complex, ...}) and the fit kdf ({Tre, Tim, v_inv} ->
+    {B = T v_inv^(1/2)}, as df_from_numpy). negG is not carried: the port
+    uses Q^k(-G) = conj(Q^k(G))^T."""
+    device = resolve_device(device)
+    out = {}
+    for key in ("hcore", "ovlp", "X"):
+        out[key] = _c128(theta_np[key], device)
+    for key in ("enuc", "occ", "wk", "wcoul", "Qre", "Qim"):
+        if key in theta_np:
+            out[key] = _f64(theta_np[key], device)
+    out["keep"] = torch.tensor(np.asarray(theta_np["keep"], dtype=bool),
+                               device=device)
+    g = theta_np.get("grid")
+    if g is not None:
+        grid = {"dvol": _f64(g["dvol"], device), "ao": _f64(
+            _embedded(g["ao"]), device)}
+        if "coords" in g:
+            grid["coords"] = _f64(g["coords"], device)
+        family = 1
+        if "ao_grad" in g:
+            grid["ao_grad"] = _f64(np.swapaxes(_embedded(g["ao_grad"]), 1, 2),
+                                   device)
+            family = 2
+        if "ao_lapl" in g:
+            grid["ao_lapl"] = _f64(_embedded(g["ao_lapl"]), device)
+            family = 4
+        grid["family"] = family
+        out["grid"] = grid
+    ex = theta_np.get("exx")
+    if ex is not None:
+        exx = {"A": _c128((ex["Are"], ex["Aim"]), device),
+               "madelung": (None if ex.get("madelung") is None
+                            else float(ex["madelung"]))}
+        for key, v in ex.items():
+            if key == "wq" or key.startswith("wqsr"):
+                exx[key] = _f64(v, device)
+        out["exx"] = exx
+    kdf = theta_np.get("kdf")
+    if kdf is not None:
+        w, v = np.linalg.eigh(np.asarray(kdf["v_inv"], dtype=np.float64))
+        half = (v * np.sqrt(np.clip(w, 0.0, None))[None, :]) @ v.T
+        t = np.asarray(kdf["Tre"]) + 1j * np.asarray(kdf["Tim"])
+        out["kdf"] = {"B": _c128(np.einsum("kijp,pq->kijq", t, half),
+                                 device)}
     return out
 
 

@@ -5,8 +5,8 @@ A dense polynomial x exponential contraction over the class-batched shells
 of ops/shellstruct.py, in plain torch, so gradients in positions, exponents
 and coefficients come from autograd. The AO order is the order of the
 integral matrices. eval_ao_pbc is the Gamma-point lattice sum of eval_ao
-over translations (the Bloch sums of eval_ao_pbc_k belong to the k-point
-slice).
+over translations, eval_ao_pbc_k the Bloch sums at k-points in the real
+embedding [Re | Im] that the grid kernels read.
 """
 from __future__ import annotations
 
@@ -136,3 +136,41 @@ def eval_ao_pbc(meta: BasisMeta, params, coords, ls, deriv: int = 0):
                for k, v in tabs.items()}
         acc = red if acc is None else {k: acc[k] + red[k] for k in acc}
     return acc
+
+
+def eval_ao_pbc_k(meta: BasisMeta, params, coords, ls, kpts, deriv: int = 0):
+    """Bloch AO tables phi^k_i(r) = sum_T e^{ik.T} phi_i(r - T) at the
+    k-points kpts (host numpy, (nk, 3)), each k's table stored as one real
+    table [Re phi^k | Im phi^k] of width 2 nao:
+      'ao': (nk, ng, 2 nao); 'ao_grad': (nk, 3, ng, 2 nao) if deriv >= 1;
+      'ao_lapl': (nk, ng, 2 nao) if deriv >= 2.
+    The translations are blocked by bytes as in eval_ao_pbc and summed in
+    their order."""
+    ls = np.asarray(ls, dtype=np.float64)
+    kpts = np.asarray(kpts, dtype=np.float64).reshape(-1, 3)
+    nL, ng = len(ls), coords.shape[0]
+    per_shift = 8 * _EVAL_DOUBLES_PER_POINT_AO * ng * meta.nao
+    shift_block = max(1, block_bytes(coords.device) // per_shift)
+    acc = None
+    for s0 in range(0, nL, shift_block):
+        T_np = ls[s0:s0 + shift_block]
+        Tc = torch.as_tensor(T_np, dtype=coords.dtype, device=coords.device)
+        nb = Tc.shape[0]
+        tabs = eval_ao(meta, params, (coords[None] - Tc[:, None]).reshape(
+            nb * ng, 3), deriv=deriv)
+        kdot = kpts @ T_np.T                                  # (nk, nb)
+        ph = torch.as_tensor(np.concatenate([np.cos(kdot), np.sin(kdot)]),
+                             dtype=coords.dtype, device=coords.device)
+        red = {}
+        for key, v in tabs.items():
+            v = v.reshape((nb, -1))
+            red[key] = (ph @ v).reshape((2 * len(kpts), ng) + tabs[key]
+                                        .shape[1:])
+        acc = red if acc is None else {k: acc[k] + red[k] for k in acc}
+    nk, out = len(kpts), {}
+    for key, v in acc.items():
+        re, im = v[:nk], v[nk:]
+        if key == "ao_grad":                       # (nk, ng, 3, nao)
+            re, im = re.permute(0, 2, 1, 3), im.permute(0, 2, 1, 3)
+        out[key] = torch.cat([re, im], dim=-1).contiguous()
+    return out

@@ -1,5 +1,5 @@
 """Analytic Fourier transforms of AO pairs for periodic systems at the Gamma
-point (counterpart of the Gamma half of dqc_tpu/ops/pbcft.py):
+point and at k-points (counterpart of dqc_tpu/ops/pbcft.py):
 
     F_ij(G) = sum_T <phi_i | e^{-i G.r} | phi_j(. - T)>
             = sum_prims w_k sum_h E_h^{ij} (-iG)^h (pi/p)^{3/2}
@@ -17,8 +17,9 @@ PBC_BLOCK_BYTES; under autograd each block is recomputed in the backward
 autograd would otherwise hold for every block. The sum over
 the translations of one pair is a gather of the pair's contiguous run of
 (pair, translation) terms and a sum over a fixed axis, in a fixed order,
-so two builds give the same bits on the card. The k-point transforms
-(pbc_pair_plan_ordered, pbc_pair_ft_k) belong to the k-point slice.
+so two builds give the same bits on the card. The Bloch transforms at
+k-points (pbc_pair_plan_ordered, pbc_pair_ft_k) run over all ordered pairs
+and weigh the same Hermite terms with the phases e^{ik.T} of each k.
 """
 from __future__ import annotations
 
@@ -33,8 +34,9 @@ from ..utils.config import DTYPE, block_bytes
 from .eri import hermite_factor_pair, hermite_factor_single
 from .mcd import hermite_list
 from .pbc import _np, estimate_rcut
-from .shellstruct import (BasisMeta, gather_pair_inputs, normalized_coeffs,
-                          nsph, pair_ao_indices, tri_pair_classes)
+from .shellstruct import (BasisMeta, all_pair_classes, gather_pair_inputs,
+                          normalized_coeffs, nsph, pair_ao_indices,
+                          tri_pair_classes)
 
 
 def _blocked(fn, ng: int, gc: int, *args, remat: bool = False):
@@ -91,18 +93,13 @@ def _ft_terms(H, p, P, L, Gc):
     return fre, fim
 
 
-def pbc_pair_plan(meta: BasisMeta, params, lattice, precision: float = 1e-9
-                  ) -> List[Tuple[object, np.ndarray, np.ndarray]]:
-    """Host-side plan: for each triangular pair class, the (pair q,
-    translation T) terms whose Gaussian prefactor exp(-mu |A - B - T|^2)
-    can exceed `precision` (mu of the most diffuse primitive pair).
-    Returns [(pair_class, qidx (nsel,) ascending, shifts (nsel, 3)), ...]."""
+def _pair_plan(meta, params, lattice, precision, classes):
     rcut = estimate_rcut(meta, params, precision)
     ls = lattice.get_lattice_ls(rcut)
     pos = _np(params["atompos"])
     logp = -np.log(precision)
     plan = []
-    for pc in tri_pair_classes(meta):
+    for pc in classes:
         A_cls, B_cls = meta.classes[pc.ca], meta.classes[pc.cb]
         aa = _np(params["alphas"][pc.ca])[pc.ia].min(axis=1)
         ab = _np(params["alphas"][pc.cb])[pc.ib].min(axis=1)
@@ -113,6 +110,25 @@ def pbc_pair_plan(meta: BasisMeta, params, lattice, precision: float = 1e-9
         q, t = np.nonzero(mu_min[:, None] * d2 < logp)
         plan.append((pc, q.astype(np.int64), ls[t]))
     return plan
+
+
+def pbc_pair_plan(meta: BasisMeta, params, lattice, precision: float = 1e-9
+                  ) -> List[Tuple[object, np.ndarray, np.ndarray]]:
+    """Host-side plan: for each triangular pair class, the (pair q,
+    translation T) terms whose Gaussian prefactor exp(-mu |A - B - T|^2)
+    can exceed `precision` (mu of the most diffuse primitive pair).
+    Returns [(pair_class, qidx (nsel,) ascending, shifts (nsel, 3)), ...]."""
+    return _pair_plan(meta, params, lattice, precision,
+                      tri_pair_classes(meta))
+
+
+def pbc_pair_plan_ordered(meta: BasisMeta, params, lattice,
+                          precision: float = 1e-9):
+    """pbc_pair_plan over all ordered shell pairs (all_pair_classes): at k
+    != 0 the two AO orders are independent, Q^k_ji != conj(Q^k_ij), so no
+    symmetric completion is made."""
+    return _pair_plan(meta, params, lattice, precision,
+                      all_pair_classes(meta))
 
 
 def _segments(qidx, npair):
@@ -181,6 +197,77 @@ def pbc_pair_ft(meta: BasisMeta, params, plan, Gv):
         Fre[g0:g1] = fre
         Fim[g0:g1] = fim
     return Fre, Fim
+
+
+def pbc_pair_ft_k(meta: BasisMeta, params, plan, Gv, kpts):
+    """Bloch pair transforms over the G vectors Gv (host numpy, (ng, 3)) at
+    the k-points kpts (host numpy, (nk, 3)):
+
+        Q^k_ij(G) = sum_T e^{ik.T} <phi_i | e^{-iG.r} | phi_j(. - T)>,
+
+    plan from pbc_pair_plan_ordered. Returns (Qre, Qim), each (nk, ng, nao,
+    nao). Per G block the Hermite transforms of the (pair, translation)
+    terms are formed once; each k then weighs them with its phases e^{ik.T}
+    and sums every pair's run of terms by a gather over a fixed axis, so
+    two builds give the same bits. Gv may be any vector set (the exchange
+    stack passes q + G)."""
+    nao = meta.nao
+    dev = params["atompos"].device
+    ng, nk = Gv.shape[0], len(kpts)
+    Gv_t = torch.as_tensor(np.asarray(Gv, dtype=np.float64), device=dev)
+    kpts = np.asarray(kpts, dtype=np.float64).reshape(nk, 3)
+    classes = []
+    per_g = 4.0 * nk * nao * nao * 8
+    for pc, qidx, shifts in plan:
+        if len(qidx) == 0:
+            continue
+        inp = gather_pair_inputs(meta, params, pc)
+        q = torch.as_tensor(qidx, device=dev)
+        ext = {k: (inp[k][q] if k not in ("la", "lb") else inp[k])
+               for k in inp}
+        ext["B"] = ext["B"] + torch.as_tensor(shifts, dtype=DTYPE,
+                                              device=dev)
+        bra = hermite_factor_pair(ext)
+        seg = _segments(qidx, pc.npair)
+        # the phases of each pair's run of terms; the padding slot's are 0
+        kdot = np.concatenate([kpts @ shifts.T, np.zeros((nk, 1))], axis=1)
+        pad = np.concatenate([np.ones(len(qidx)), [0.0]])
+        ph = [torch.as_tensor((f(kdot) * pad)[:, seg], dtype=DTYPE,
+                              device=dev) for f in (np.cos, np.sin)]
+        idx = torch.as_tensor(pair_ao_indices(meta, pc).ravel(), device=dev)
+        classes.append((bra, torch.as_tensor(seg, device=dev), ph, idx))
+        ns, kk, nsp, nh = bra.H.shape
+        per_g += 8.0 * (ns * kk * (2 * nsp * nh + 6 * nsp + 4)
+                        + 6 * seg.size * nsp)
+    gc = _g_block(per_g, ng, dev)
+
+    def block(g0, g1, *factors):
+        Gc = Gv_t[g0:g1]
+        out = [torch.zeros((nk, nao * nao, g1 - g0), dtype=DTYPE,
+                           device=dev) for _ in range(2)]
+        for ci, (bra, seg, (ck, sk), idx) in enumerate(classes):
+            H, p, P = factors[3 * ci:3 * ci + 3]
+            fre, fim = (torch.cat([f, torch.zeros_like(f[:1])])[seg]
+                        for f in _ft_terms(H, p, P, bra.L, Gc))
+            for k in range(nk):
+                c = ck[k][:, :, None, None]
+                s = sk[k][:, :, None, None]
+                # e^{ik.T} (fre + i fim), summed over each pair's terms;
+                # one class writes each flat index once: order-free
+                out[0][k].index_add_(0, idx, (c * fre - s * fim).sum(
+                    dim=1).reshape(-1, g1 - g0))
+                out[1][k].index_add_(0, idx, (c * fim + s * fre).sum(
+                    dim=1).reshape(-1, g1 - g0))
+        return tuple(a.view(nk, nao, nao, -1).permute(0, 3, 1, 2)
+                     for a in out)
+
+    factors = [t for bra, _, _, _ in classes for t in (bra.H, bra.p, bra.P)]
+    Qre = torch.empty((nk, ng, nao, nao), dtype=DTYPE, device=dev)
+    Qim = torch.empty((nk, ng, nao, nao), dtype=DTYPE, device=dev)
+    for g0, g1, (qre, qim) in _blocked(block, ng, gc, *factors, remat=True):
+        Qre[:, g0:g1] = qre
+        Qim[:, g0:g1] = qim
+    return Qre, Qim
 
 
 def coulomb_gweights(Gv, volume):

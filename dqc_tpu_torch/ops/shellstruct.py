@@ -194,6 +194,19 @@ def tri_pair_classes(meta: BasisMeta) -> List[PairClassMeta]:
     return out
 
 
+def all_pair_classes(meta: BasisMeta) -> List[PairClassMeta]:
+    """All ordered shell pairs: every (class_a, class_b) with the full cross
+    product of their shells, so each entry of an (nao, nao) matrix belongs
+    to exactly one pair (the k-point pair transforms, where the two AO
+    orders are independent)."""
+    out = []
+    for ca, A in enumerate(meta.classes):
+        for cb, B in enumerate(meta.classes):
+            ia, ib = plan_pairs(A.nshell, B.nshell, triangular=False)
+            out.append(PairClassMeta(ca=ca, cb=cb, ia=ia, ib=ib))
+    return out
+
+
 def gather_pair_inputs(meta: BasisMeta, params, pc: PairClassMeta):
     """Device-side inputs for one pair class.
 

@@ -26,6 +26,15 @@ occupations however close the eigenvalues are (the Daleckii-Krein formula
 of a spectral function, with the reference's broadening where occupations
 differ).
 
+Complex Hermitian matrices (the Bloch Fock matrices of a k-point cell,
+where degenerate bands are the rule at Gamma and at the zone boundary)
+take the same rules with conjugate transposes in place of transposes and
+the Hermitian part in place of the symmetric one (`.mH` is `.mT` on a real
+tensor, so the real rules keep their bits); Gamma is real and symmetric,
+so the density rule stays its own adjoint, and it stays exactly 0 for
+equal occupations. The cotangents follow torch's convention for complex
+tensors (d/d Re + i d/d Im of a real loss).
+
 The eigenvector polish of the JAX package has no counterpart: it repairs
 f32-grade eigenvectors of an f64 solve on the TPU, while
 torch.linalg.eigh in float64 (LAPACK on the CPU, cuSOLVER on the card) is
@@ -41,7 +50,8 @@ _ROUND = 1024
 
 
 def _sym(a):
-    return 0.5 * (a + a.transpose(-1, -2))
+    """The Hermitian part (the symmetric part of a real matrix)."""
+    return 0.5 * (a + a.mH)
 
 
 def _eigh_vjp(w, v, wbar, vbar):
@@ -53,8 +63,8 @@ def _eigh_vjp(w, v, wbar, vbar):
     f = torch.where(d.abs() > tiny[..., None], d / (d * d + _EPS * _EPS),
                     torch.zeros_like(d))
     f = f * (1.0 - torch.eye(w.shape[-1], dtype=w.dtype, device=w.device))
-    inner = f * (v.transpose(-1, -2) @ vbar) + torch.diag_embed(wbar)
-    return _sym(v @ inner @ v.transpose(-1, -2))
+    inner = f * (v.mH @ vbar) + torch.diag_embed(wbar).to(v.dtype)
+    return _sym(v @ inner @ v.mH)
 
 
 class _SafeEigh(torch.autograd.Function):
@@ -83,8 +93,8 @@ def _density_vjp(w, v, occ, pbar):
     docc = occ[..., None, :] - occ[..., :, None]   # occ_b - occ_a
     gam = torch.where(docc != 0, docc * d / (d * d + _EPS * _EPS),
                       torch.zeros_like(d))
-    g = v.transpose(-1, -2) @ _sym(pbar) @ v
-    return v @ (gam * g) @ v.transpose(-1, -2)
+    g = v.mH @ _sym(pbar) @ v
+    return v @ (gam * g) @ v.mH
 
 
 class _EighDensity(torch.autograd.Function):
@@ -92,7 +102,7 @@ class _EighDensity(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, occ):
         w, v = torch.linalg.eigh(a)
-        p = (v * occ[..., None, :]) @ v.transpose(-1, -2)
+        p = (v * occ[..., None, :]) @ v.mH
         ctx.save_for_backward(w, v, occ)
         return p, w, v
 
@@ -102,13 +112,14 @@ class _EighDensity(torch.autograd.Function):
         abar = _density_vjp(w, v, occ, pbar) + _eigh_vjp(w, v, wbar, vbar)
         occbar = None
         if ctx.needs_input_grad[1]:
-            occbar = torch.diagonal(v.transpose(-1, -2) @ pbar @ v,
-                                    dim1=-2, dim2=-1)
+            occbar = torch.diagonal(v.mH @ pbar @ v, dim1=-2,
+                                    dim2=-1).real
         return abar, occbar
 
 
 def eigh_density(a, occ):
-    """(P = V diag(occ) V^T, w, V) of a symmetric matrix (or a batch) and
+    """(P = V diag(occ) V^H, w, V) of a Hermitian matrix (or a batch: the
+    complex per-k Fock matrices of scf/kpbc.py) and
     occupations aligned to the ascending eigenvalues w. P's derivative is
     exact for degenerate levels of equal occupation (module docstring);
     w and V keep safe_eigh's rule. Double backward goes through the saved

@@ -64,7 +64,9 @@ class SCFOptions(NamedTuple):
 
 
 def diis_solve(step_and_err: Callable, f0, opts: SCFOptions):
-    """Generic CDIIS loop on a flattened state vector.
+    """Generic CDIIS loop on a flattened real state vector (a complex
+    state, the Bloch Fock matrices of a k-point cell, is carried as stacked
+    (re, im), so the history, B and the extrapolation stay real algebra).
 
     step_and_err(f) -> (next Fock from the plain SC map, DIIS error tensor,
     typically X^T [F,D,S] X). f0: initial state tensor.
@@ -77,6 +79,9 @@ def diis_solve(step_and_err: Callable, f0, opts: SCFOptions):
               best_err. Use for final answers.
       f_raw — the SC-map output step(f_in): one extra map application.
     """
+    if f0.is_complex():
+        raise TypeError("diis_solve takes a real state; carry a complex one "
+                        "as stacked (re, im), as scf/kpbc.py does")
     shape = f0.shape
     ff = f0.reshape(-1)
     dtype, dev = ff.dtype, ff.device
@@ -251,7 +256,8 @@ class _Slot:
 def _take(t, leaves):
     if isinstance(t, dict):
         return {k: _take(v, leaves) for k, v in t.items()}
-    if isinstance(t, torch.Tensor) and t.is_floating_point():
+    if isinstance(t, torch.Tensor) and (t.is_floating_point()
+                                        or t.is_complex()):
         leaves.append(t)
         return _Slot(len(leaves) - 1)
     return t
@@ -264,7 +270,8 @@ def _rebuild(spec, ls):
 
 
 def _flatten(tree):
-    """(floating tensor leaves, rebuild) of a nested dict: rebuild(leaves)
+    """(floating and complex tensor leaves, rebuild) of a nested dict (the
+    complex integrals of a k-point cell are leaves too): rebuild(leaves)
     gives the dict back with those leaves; everything else (bool masks,
     ints) stays in it as it is. Module-level helpers, not recursive
     closures: a closure that calls itself is a reference cycle, and would

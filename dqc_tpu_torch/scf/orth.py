@@ -11,10 +11,10 @@ Derivative: X is determined by S only up to X -> X R (R orthogonal), and
 nothing the SCF computes from it (the density matrix, the energy, the
 orbitals and their energies) depends on that choice. With every direction
 kept, X therefore takes the gauge-fixed rule dX = -1/2 X X^T dS X (it
-keeps X^T S X = I) instead of the derivative of S's eigenvectors, which divides
-by the gaps between S's eigenvalues: S of a symmetric molecule has
-degenerate levels split by rounding, and 1/gap times rounding is noise of
-order one. The rule needs no eigenvalue and is exact to every order for
+keeps X^T S X = I; X^H for a complex S) instead of the derivative of S's
+eigenvectors, which divides by the gaps between S's eigenvalues: S of a
+symmetric molecule has degenerate levels split by rounding, and 1/gap
+times rounding is noise of order one. The rule needs no eigenvalue and is exact to every order for
 those quantities. With masked directions X keeps safe_eigh's rule.
 """
 from __future__ import annotations
@@ -39,18 +39,20 @@ class _FullRank(torch.autograd.Function):
     @staticmethod
     def backward(ctx, xbar):
         (x,) = ctx.saved_tensors
-        g = -0.5 * (x @ x.transpose(-1, -2) @ xbar @ x.transpose(-1, -2))
-        return 0.5 * (g + g.transpose(-1, -2)), None
+        g = -0.5 * (x @ x.mH @ xbar @ x.mH)
+        return 0.5 * (g + g.mH), None
 
 
 def orthogonalizer(ovlp, threshold: float = 1e-9):
-    """Returns (X, keep_mask). X: (nao, nao) with masked columns zeroed."""
+    """Returns (X, keep_mask). X: (nao, nao) with masked columns zeroed;
+    a batch of Hermitian overlaps (the per-k S^k of a k-point cell) gives
+    a batch, X^H S X = I on the kept subspace."""
     w, v = safe_eigh(ovlp)
-    keep = w > threshold * w[-1]
+    keep = w > threshold * w[..., -1:]
     one = torch.ones_like(w)
     inv_sqrt = torch.where(keep, 1.0 / torch.sqrt(torch.where(keep, w, one)),
                            torch.zeros_like(w))
-    X = v * inv_sqrt[None, :]
+    X = v * inv_sqrt[..., None, :].to(v.dtype)
     if ovlp.requires_grad and bool(keep.all()):
         X = _FullRank.apply(ovlp, X.detach())
     return X, keep

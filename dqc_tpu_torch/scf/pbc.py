@@ -34,6 +34,11 @@ from ..xc.integrate import _deriv_of_family
 from .df import pinv_sqrt
 from .orth import orthogonalizer
 
+# the JAX package's two precisions of a periodic cell: the core theta
+# (lattice sums, G cutoff, pair plan) and the translations of the AO
+# lattice sums
+CORE_PRECISION = 1e-9
+AO_PRECISION = 1e-8
 # points per chunk of the lattice-summed AO tables (the translations inside
 # a chunk are blocked by bytes, ops/aoeval.eval_ao_pbc)
 AO_PT_CHUNK = 2048
@@ -57,20 +62,16 @@ def _ao_chunk(meta, params, coords, ls_ao, deriv):
     return tuple(out)
 
 
-def setup_pbc_grid_theta(meta, params, pbcgrid, ls_ao, family: int = 1,
-                         stats=None):
-    """PBCGridSpec -> grid tables on the device of params, in the keys and
-    layouts of xc/integrate.setup_grid_theta: coords (ng, 3), dvol (ng,),
-    ao (ng, nao), ao_grad (3, ng, nao), ao_lapl (ng, nao), family. The
-    Becke weights run over the virtual atoms; the AO tables are lattice sums
-    over ls_ao. `stats` gets becke_s and ao_tables_s."""
+def pbc_grid_points(params, pbcgrid):
+    """(coords (ng, 3), dvol (ng,)) of the cell-wrapped grid on the device of
+    params: the points move with the atoms, and the Becke weights run over
+    the virtual atoms (grid/becke.py, in byte-sized chunks)."""
     atompos = params["atompos"]
     dev, dt = atompos.device, atompos.dtype
 
     def t(x, dtype=dt):
         return torch.as_tensor(np.asarray(x), dtype=dtype, device=dev)
 
-    t0 = time.perf_counter()
     coords = (atompos[t(pbcgrid.atom_idx, torch.int64)]
               + t(pbcgrid.ratom)[:, None] * t(pbcgrid.dirs)
               + t(pbcgrid.shift))
@@ -79,7 +80,19 @@ def setup_pbc_grid_theta(meta, params, pbcgrid, ls_ao, family: int = 1,
     vradii = t(pbcgrid.atom_radii)[vowner]
     w_becke = becke_weights(coords, t(pbcgrid.vatom_idx, torch.int64), vpos,
                             vradii)
-    dvol = t(pbcgrid.w0) * w_becke
+    return coords, t(pbcgrid.w0) * w_becke
+
+
+def setup_pbc_grid_theta(meta, params, pbcgrid, ls_ao, family: int = 1,
+                         stats=None):
+    """PBCGridSpec -> grid tables on the device of params, in the keys and
+    layouts of xc/integrate.setup_grid_theta: coords (ng, 3), dvol (ng,),
+    ao (ng, nao), ao_grad (3, ng, nao), ao_lapl (ng, nao), family. The
+    Becke weights run over the virtual atoms; the AO tables are lattice sums
+    over ls_ao. `stats` gets becke_s and ao_tables_s."""
+    dev = params["atompos"].device
+    t0 = time.perf_counter()
+    coords, dvol = pbc_grid_points(params, pbcgrid)
     _sync(dev)
     t1 = time.perf_counter()
     deriv = _deriv_of_family(family)

@@ -34,7 +34,10 @@ minimise the energy over orbital rotations by BFGS instead of DIIS
 runs at the Gamma point (_pbc_calc): theta from scf/pbc.build_pbc_core_theta
 (the pair-Fourier-transform route "aft", or "gdf" after
 sol.densityfit(method="gdf")) and, for KS, the cell-wrapped grid tables of
-setup_pbc_grid_theta; a Sol with k-points raises.
+setup_pbc_grid_theta; a Sol with k-points (more than one, or one away from
+Gamma) runs on the k-point engine of scf/kpbc.py (_kpbc_calc), its state
+the stacked (re, im) real form of the complex D^k, so the solver, the
+implicit derivatives and their real algebra are the same.
 
 Derivatives follow the JAX package's energy_fn: theta is rebuilt from the
 params in the autograd graph (one-electron integrals, the in-graph
@@ -76,8 +79,10 @@ from .hamilton import build_core_theta
 from .jk import (build_jk_blocks, build_jk_factors, build_jk_meta,
                  factors_to_theta, jk_blocks_nbytes, jk_combos)
 from .orth import LARGE
-from .pbc import (build_pbc_core_theta, madelung_constant,
-                  setup_pbc_grid_theta)
+from .kpbc import (KPBCEngine, build_kpbc_theta, has_kpoints, join,
+                   kmesh_supercell)
+from .pbc import (AO_PRECISION, CORE_PRECISION, build_pbc_core_theta,
+                  madelung_constant, setup_pbc_grid_theta)
 
 # at and above this nao the SCF starts from the Fock matrix of the SAD
 # density (guess="sad", the default) or the GWH Fock (guess="gwh"); below it
@@ -165,10 +170,15 @@ class SCF_QCCalc:
         calc) or when F(dm0) is not finite. Any other error of the atomic
         SCFs (a kernel's build or launch among them) propagates.
         stats['guess'] says which; stats['sad_s'] (part of scf_s) the
-        seconds of the atomic SCFs."""
+        seconds of the atomic SCFs. A k-point cell starts from the core
+        guess at any size (its engine's zero state), as in the JAX
+        package."""
         eng, opts = self.engine, self.opts
         mol = self.mol
         nao = mol.meta.nao
+        if isinstance(eng, KPBCEngine):
+            self.stats["guess"] = "core"
+            return eng.fock(eng.init_dm(mol.device), theta)
         if nao < GUESS_NAO:
             shape = (2, nao, nao) if eng.polarized else (nao, nao)
             dm0 = torch.zeros(shape, dtype=mol.dtype, device=mol.device)
@@ -424,8 +434,12 @@ class SCF_QCCalc:
         return self._energy
 
     def aodm(self):
+        """The converged density matrix: (nao, nao), or SpinParam of two;
+        for a k-point cell the complex D^k (nk, nao, nao) per spin."""
         assert self._has_run, "call .run() first"
         dm = self._dm
+        if isinstance(self.engine, KPBCEngine):
+            dm = join(dm)
         if self.engine.polarized:
             return SpinParam(u=dm[0], d=dm[1])
         return dm
@@ -433,6 +447,8 @@ class SCF_QCCalc:
     def dm2energy(self, dm):
         if isinstance(dm, SpinParam):
             dm = torch.stack([dm.u, dm.d], dim=0)
+        if dm.is_complex():
+            dm = torch.stack([dm.real, dm.imag])
         if self._theta is None:
             self._theta = self._build_theta(self._all_params())
         return self.engine.energy(dm, self._theta)
@@ -756,12 +772,6 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
     return theta
 
 
-# the JAX package's two precisions of a periodic cell: the translations of
-# the AO lattice sums, and the core theta (lattice sums, G cutoff, pair plan)
-PBC_AO_PRECISION = 1e-8
-PBC_CORE_PRECISION = 1e-9
-
-
 def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
     """Gamma-point HF (xc None) or KS of a periodic cell, the JAX package's
     _pbc_hf and _pbc_ks (dqc_tpu/scf/qccalc.py:1652-1716): J and K from the
@@ -769,14 +779,12 @@ def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
     Madelung correction of exact exchange for opts.exxdiv "ewald" (None:
     none), computed only when the method has exact exchange; KS adds the
     cell-wrapped grid tables. stats: the stage seconds of
-    build_pbc_core_theta, grid_s with becke_s and ao_tables_s."""
-    kpts = np.asarray(sol.kpts)
-    if len(kpts) > 1 or np.abs(kpts).max() > 1e-12:
-        raise NotImplementedError(
-            "not ported yet: periodic systems with k-points other than Gamma "
-            "(ROADMAP A15)")
+    build_pbc_core_theta, grid_s with becke_s and ao_tables_s. A cell with
+    k-points takes _kpbc_calc."""
     if opts.exxdiv not in ("ewald", None):
         raise ValueError(f"unknown exxdiv {opts.exxdiv!r}; 'ewald' or None")
+    if has_kpoints(sol.kpts):
+        return _kpbc_calc(sol, xc, restricted, opts)
     polarized = sol.polarized if restricted is None else (not restricted)
     occ = _occ_array(sol, polarized)
     omegas = () if xc is None else tuple(w for _, w in xc.exx_lr)
@@ -787,7 +795,7 @@ def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
     if xc is not None:
         grid = sol.setup_grid()
         ls_ao = sol.lattice.get_lattice_ls(
-            estimate_rcut(sol.meta, sol.params, PBC_AO_PRECISION))
+            estimate_rcut(sol.meta, sol.params, AO_PRECISION))
 
     def build_theta(params, stats=None):
         dev = sol.device
@@ -798,7 +806,7 @@ def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
                                        atompos=params["basis"]["atompos"]))
         theta = build_pbc_core_theta(
             sol, params["basis"], params["atomzs"],
-            precision=PBC_CORE_PRECISION, madelung=mad, gdf_aux=gdf_aux,
+            precision=CORE_PRECISION, madelung=mad, gdf_aux=gdf_aux,
             lr_omegas=omegas, stats=times)
         theta["occ"] = occ
         if xc is not None:
@@ -823,6 +831,56 @@ def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
     return calc
 
 
+def _kpbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
+    """HF (xc None: the pure exchange functional "hf") or KS of a cell with
+    k-points, the JAX package's _kpbc_ks (dqc_tpu/scf/qccalc.py:1619-1649)
+    on scf/kpbc.py: J from the Bloch pair transforms (route "aft") or the
+    k-point fit (route "gdf"), exact exchange from the mixed (k, k') stack
+    with the Madelung term of the mesh's Born-von-Karman supercell for
+    opts.exxdiv "ewald", XC through K2/K3 on the embedded Bloch tables. The
+    SCF starts from the core guess. stats: int1e_s, pair_ft_s, vnuc_s,
+    exx_s, gdf_s, grid_s with becke_s and ao_tables_s, nk, n_gvectors,
+    n_pair_terms."""
+    if opts.method != "diis":
+        raise ValueError("a k-point cell has the DIIS solver only "
+                         f"(method {opts.method!r})")
+    xc = get_xc("hf") if xc is None else xc
+    polarized = sol.polarized if restricted is None else (not restricted)
+    occ = _occ_array(sol, polarized)
+    engine = KPBCEngine(xc, nk=len(sol.kpts), nao=sol.meta.nao,
+                        polarized=polarized)
+    omegas = tuple(w for _, w in engine.exx_lr)
+    mad = (madelung_constant(kmesh_supercell(sol.lattice, sol.kpts))
+           if engine.has_exx and opts.exxdiv == "ewald" else None)
+    gdfset = _df_setup(sol)
+    ls_ao = (sol.lattice.get_lattice_ls(estimate_rcut(
+        sol.meta, sol.params, AO_PRECISION)) if engine.semilocal
+        else None)
+
+    def build_theta(params, stats=None):
+        gdf_aux = None
+        if gdfset is not None:
+            gdf_aux = (gdfset[0], dict(gdfset[1],
+                                       atompos=params["basis"]["atompos"]))
+        times = {"jk_mode": "aft" if gdfset is None else "gdf"}
+        theta = build_kpbc_theta(
+            sol, params["basis"], params["atomzs"],
+            semilocal=engine.semilocal, family=xc.family,
+            with_exx=engine.has_exx, madelung=mad, lr_omegas=omegas,
+            gdf_aux=gdf_aux, ls_ao=ls_ao, stats=times)
+        theta["occ"] = occ
+        theta["xc_params"] = params.get("xc_params")
+        if stats is not None:
+            stats.update(times)
+        return theta
+
+    calc = SCF_QCCalc(sol, engine, build_theta=build_theta, opts=opts,
+                      jk_mode="aft" if gdfset is None else "gdf")
+    if isinstance(xc, CustomXC):
+        calc._xc_params = {xc.key: xc.init_params}
+    return calc
+
+
 def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
        opts: Optional[SCFOptions] = None) -> SCF_QCCalc:
     """Hartree-Fock front end.
@@ -836,7 +894,8 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
     fit config.BLOCKED_JK_BYTES_LIMIT, and the streamed route past that
     (_route, scf/jk.py). A molecule with densityfit() takes the DF route:
     RI-J and RI-K from the fit of scf/df.py, no nao^4 tensor, no size
-    limit. A periodic cell (Sol) runs at the Gamma point (_pbc_calc)."""
+    limit. A periodic cell (Sol) runs at the Gamma point (_pbc_calc), or
+    with k-points on the k-point engine (_kpbc_calc)."""
     opts = _options(variational, opts)
     if hasattr(mol, "lattice"):
         return _pbc_calc(mol, None, restricted, opts)
@@ -872,7 +931,9 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
     mol.densityfit(). Every route runs K2/K3 for the density and V_xc of a
     GGA or meta-GGA. A CustomXC's parameters are differentiable inputs:
     energy_grad()['xc_params']. A periodic cell (Sol) runs at the Gamma
-    point (_pbc_calc), K2/K3 on its lattice-summed grid tables."""
+    point (_pbc_calc), K2/K3 on its lattice-summed grid tables, or with
+    k-points (_kpbc_calc), K2/K3 once per k and spin on the real embedding
+    of its Bloch tables."""
     xc = get_xc(xc)
     opts = _options(variational, opts)
     if hasattr(mol, "lattice"):

@@ -1,7 +1,7 @@
 """Periodic solid (counterpart of dqc_tpu/system/sol.py): atoms in a cell of
 lattice vectors `alattice`, the Ewald nuclei energy, k-points, and the
-periodic Hamiltonian's hooks. HF/KS of a Sol run at the Gamma point
-(scf/qccalc.py); a Sol with k-points raises there.
+periodic Hamiltonian's hooks. HF/KS of a Sol run at the Gamma point, or
+with k-points on the k-point engine (scf/qccalc.py, scf/kpbc.py).
 """
 from __future__ import annotations
 
@@ -25,7 +25,9 @@ class Sol:
     """Periodic solid: soldesc ("H 0 0 0; ..." or (atomzs, atompos), Bohr)
     and lattice vectors `alattice` (3, 3) in rows, Bohr. The cell is
     neutral (no charge argument); spin is 2 S_z (default: the parity of the
-    electron count); kpts (nk, 3) default to the Gamma point alone; grid is
+    electron count); kpts (nk, 3), in Bohr^-1, default to the Gamma point
+    alone (more than one k-point, or one away from Gamma, takes the k-point
+    engine; a mesh's weights are uniform); grid is
     the XC grid, wrapped into the cell (grid/factory.pbc_wrap_grid).
     device: None means the CUDA card (RuntimeError without one); pass "cpu"
     to run on the CPU. efield, efield_grad, efield_grad2 and vext are None:
@@ -52,7 +54,12 @@ class Sol:
         self.spin = spin if spin is not None else nelec % 2
         self.nelec = ((nelec + self.spin) / 2.0, (nelec - self.spin) / 2.0)
         self.polarized = self.spin != 0
-        self.kpts = np.zeros((1, 3)) if kpts is None else np.asarray(kpts)
+        self.kpts = np.zeros((1, 3)) if kpts is None else np.asarray(
+            kpts, dtype=np.float64)
+        if self.kpts.ndim != 2 or self.kpts.shape[1] != 3 or \
+                len(self.kpts) == 0 or not np.all(np.isfinite(self.kpts)):
+            raise ValueError(f"kpts must be a finite (nk, 3) array with nk "
+                             f">= 1, got shape {self.kpts.shape}")
         self.grid_level = grid
         self.efield = self.efield_grad = self.efield_grad2 = None
         self.vext = None

@@ -37,6 +37,11 @@ class _Config:
     # temporaries and the grid tables come on top), so 4 GiB of blocks
     # stays under the 80 GB card even at the larger ratio
     BLOCKED_JK_BYTES_LIMIT: int = 4 * 1024 ** 3
+    # k-point exact exchange keeps the mixed pair-transform stack of every
+    # (k, k') pair, nk^2 ng nao^2 complex entries (scf/kpbc.py); a mesh
+    # whose stack passes this many bytes raises. H8 (nao 16, 98,900 G) on
+    # a 2x2x2 mesh needs 25.9 GB, on a 3x3x3 mesh 295 GB
+    KPBC_EXX_BYTES_LIMIT: int = 32 * 1024 ** 3
     # verbosity: 0 silent, 1 progress lines, 2 debug
     VERBOSE: int = 0    # overridden by env DQC_TPU_VERBOSE at import
 

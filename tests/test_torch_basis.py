@@ -220,9 +220,8 @@ def test_mol_probes_and_hooks_not_ported_yet():
     ng = m.setup_grid().w0.shape[0]
     mv = dqt.Mol(H2O, basis="sto-3g", device="cpu", vext=np.zeros(ng))
     assert tuple(dqt.HF(mv)._all_params()["vext"].shape) == (ng,)
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        dqt.band_energies
-    for name in ("hessian_pos", "edipole", "ValGrad", "Sol"):
+    for name in ("hessian_pos", "edipole", "ValGrad", "Sol",
+                 "band_energies"):
         assert callable(getattr(dqt, name))
     with pytest.raises(AttributeError):
         dqt.no_such_name

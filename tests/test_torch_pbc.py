@@ -27,7 +27,8 @@ The same cells go through both packages (all lengths in Bohr):
     its explicit v_inv loses eps * cond to cancellation; 1e-11 relative);
     others 1e-12 relative.
   - The port's forces (HF and LDA, H2 in a 5-Bohr cube) against central
-    differences of its own energy_fn (1e-7), and the k-point refusal.
+    differences of its own energy_fn (1e-7), and the k-point entry points
+    (a cell with k-points builds a calc on the k-point engine).
 Each JAX result is computed once per module (fixtures).
 """
 import jax
@@ -449,12 +450,16 @@ def test_forces_match_jax_grad(h2_force):
 
 
 def test_kpoints_and_probes():
+    from dqc_tpu_torch.scf.kpbc import KPBCEngine
     sol = dqt.Sol("He 0 0 0", np.eye(3) * 3.0, basis="sto-3g",
                   kpts=np.array([[0.0, 0, 0], [0.5, 0, 0]]), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15"):
-        dqt.KS(sol, xc="lda_x")
-    with pytest.raises(NotImplementedError, match="A15"):
-        dqt.HF(sol)
+    # a cell with k-points builds a calc on the k-point engine
+    for calc in (dqt.KS(sol, xc="lda_x"), dqt.HF(sol)):
+        assert isinstance(calc.engine, KPBCEngine) and calc.engine.nk == 2
+    assert dqt.HF(sol).engine.has_exx and not dqt.HF(sol).engine.semilocal
+    with pytest.raises(ValueError, match="kpts"):
+        dqt.Sol("He 0 0 0", np.eye(3) * 3.0, kpts=[0.0, 0.0, 0.0],
+                device="cpu")
     with pytest.raises(NotImplementedError, match="A16"):
         sol.set_cache("x")
     assert sol.densityfit() is sol and sol.dfinfo is None

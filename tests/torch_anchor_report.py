@@ -11,6 +11,10 @@
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
         pbc_h8_gdf_pbe pbc_h8_gdf_camb3lyp
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_h2_grad
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_k3_hf \
+        pbc_k3_pbe pbc_k3_pbe0 pbc_k3_camb3lyp pbc_k3_scan pbc_k3_uks_pbe
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+        pbc_k3_gdf_pbe
 
 For each functional named on the command line, one JSON line: the energy
 of dqc_tpu.KS(benzene/def2-SVP, grid=2, xc, SCFOptions(mixed=False)) (the
@@ -48,6 +52,21 @@ the pair-Fourier-transform route, "pbc_h8_gdf_<xc>" after
 sol.densityfit(method="gdf") (autoaux). Each takes minutes on one core
 (the JAX package's Becke weights over the 465 virtual atoms of the
 wrapped grid) and about 12 GB.
+
+A name with the prefix "pbc_k3_" runs chip_smoke.py's k-point phase of
+that name: the same H8 cell on the three-point mesh k = (n pi/9, 0, 0)
+Bohr^-1, n = 0, 1, 2 (K3_MESH), SCFOptions(mixed=False); "pbc_k3_hf"
+prints two lines (exxdiv "ewald" and None; "pbc_k3_hf_ewald" and
+"pbc_k3_hf_none" one each), "pbc_k3_uks_<xc>" runs KS with
+restricted=False, "pbc_k3_gdf_<xc>" after sol.densityfit(method="gdf")
+(with --factored the JAX package's k-point fit, build_kpbc_gdf, is
+contracted in factored form, as its periodic fit is). Each takes minutes
+on one core. For these the JAX package's pbc_pair_ft_k
+is evaluated by blocked_pbc_pair_ft_k: the same Hermite terms, phases
+and scatter-adds, but with the phases applied inside each G block. The
+package's own function keeps the (ng, pair x translation) transforms of
+every G before the k loop, 72 GB for H8 (RESOURCE_EXHAUSTED on a 62 GB
+host).
 
 "pbc_h2_grad" prints jax.grad of the JAX package's periodic energy_fn in
 the atom positions, jitted in the positions alone, for HF and for lda_x on
@@ -209,6 +228,128 @@ def pbc_h8(name, factored):
             "backend": jax.default_backend()}), flush=True)
 
 
+K3_MESH = np.array([[n * np.pi / 9.0, 0.0, 0.0] for n in range(3)])
+
+
+def factored_build_kpbc_gdf(Qre, Qim, w, meta_aux, params_aux, Gv):
+    """dqc_tpu.scf.kpbc.build_kpbc_gdf's pseudo-inverse in factored form:
+    T -> T V diag(w^-1/2) on the kept spectrum of the metric and v_inv ->
+    I (module docstring)."""
+    from dqc_tpu.ops.pbcft import eval_ao_ft
+    cre, cim = eval_ao_ft(meta_aux, params_aux, jnp.asarray(Gv))
+    Tre = (jnp.einsum("kgij,g,gp->kijp", Qre, w, cre)
+           + jnp.einsum("kgij,g,gp->kijp", Qim, w, cim))
+    Tim = (jnp.einsum("kgij,g,gp->kijp", Qim, w, cre)
+           - jnp.einsum("kgij,g,gp->kijp", Qre, w, cim))
+    v = (jnp.einsum("gp,g,gq->pq", cre, w, cre)
+         + jnp.einsum("gp,g,gq->pq", cim, w, cim))
+    ew, ev = jnp.linalg.eigh(0.5 * (v + v.T))
+    keep = ew > 1e-10 * jnp.max(ew)
+    f = jnp.where(keep, 1.0 / jnp.sqrt(jnp.where(keep, ew, 1.0)), 0.0)
+    h = ev * f[None, :]
+    return {"Tre": jnp.einsum("kijp,pq->kijq", Tre, h),
+            "Tim": jnp.einsum("kijp,pq->kijq", Tim, h),
+            "v_inv": jnp.eye(ew.shape[0], dtype=ew.dtype)}
+
+
+def blocked_pbc_pair_ft_k(meta, params, plan, Gv, kpts, g_block=512):
+    """dqc_tpu.ops.pbcft.pbc_pair_ft_k with the k loop and the scatter to
+    the AO pairs inside each G block (module docstring): the same terms of
+    the same function, evaluated block by block."""
+    from dqc_tpu.ops.chunks import map_blocks
+    from dqc_tpu.ops.eri import hermite_factor_pair
+    from dqc_tpu.ops.pbcft import gpow_table
+    from dqc_tpu.ops.shellstruct import gather_pair_inputs, pair_ao_indices
+    nao, ng = meta.nao, Gv.shape[0]
+    kpts = np.asarray(kpts)
+    nk = len(kpts)
+    classes = []
+    for pc, qidx, shifts in plan:
+        if len(qidx) == 0:
+            continue
+        inp = gather_pair_inputs(meta, params, pc)
+        q = jnp.asarray(qidx)
+        ext = {"A": inp["A"][q], "B": inp["B"][q] + jnp.asarray(shifts),
+               "aa": inp["aa"][q], "ab": inp["ab"][q],
+               "ca": inp["ca"][q], "cb": inp["cb"][q],
+               "la": inp["la"], "lb": inp["lb"]}
+        kdot = kpts @ shifts.T
+        classes.append((hermite_factor_pair(ext), pc.npair, jnp.asarray(qidx),
+                        jnp.asarray(pair_ao_indices(meta, pc).ravel()),
+                        jnp.asarray(np.cos(kdot)), jnp.asarray(np.sin(kdot))))
+
+    def body(Gc):
+        gc = Gc.shape[0]
+        out_re = jnp.zeros((nk, gc, nao * nao))
+        out_im = jnp.zeros((nk, gc, nao * nao))
+        for bra, npair, seg, idx, ck, sk in classes:
+            Wre, Wim = gpow_table(bra.L, Gc)
+            Tre = jnp.einsum("pksh,gh->pksg", bra.H, Wre)
+            Tim = jnp.einsum("pksh,gh->pksg", bra.H, Wim)
+            g2 = jnp.sum(Gc * Gc, axis=-1)
+            damp = ((jnp.pi / bra.p[..., None]) ** 1.5
+                    * jnp.exp(-g2[None, None, :] / (4.0 * bra.p[..., None])))
+            ph = jnp.einsum("pkd,gd->pkg", bra.P, Gc)
+            c, s = damp * jnp.cos(ph), damp * jnp.sin(ph)
+            fre = (jnp.einsum("pkg,pksg->gps", c, Tre)
+                   + jnp.einsum("pkg,pksg->gps", s, Tim))
+            fim = (jnp.einsum("pkg,pksg->gps", c, Tim)
+                   - jnp.einsum("pkg,pksg->gps", s, Tre))
+            nsph = fre.shape[-1]
+            for k in range(nk):
+                qre = jnp.zeros((gc, npair, nsph)).at[:, seg, :].add(
+                    ck[k][None, :, None] * fre - sk[k][None, :, None] * fim)
+                qim = jnp.zeros((gc, npair, nsph)).at[:, seg, :].add(
+                    ck[k][None, :, None] * fim + sk[k][None, :, None] * fre)
+                out_re = out_re.at[k, :, idx].add(qre.reshape(gc, -1).T)
+                out_im = out_im.at[k, :, idx].add(qim.reshape(gc, -1).T)
+        return out_re.swapaxes(0, 1), out_im.swapaxes(0, 1)
+
+    re, im = map_blocks(body, jnp.asarray(Gv), ng, g_block)
+    return (re.swapaxes(0, 1).reshape(nk, ng, nao, nao),
+            im.swapaxes(0, 1).reshape(nk, ng, nao, nao))
+
+
+def _blocked_k_transforms():
+    """Puts blocked_pbc_pair_ft_k in the place of the JAX package's
+    pbc_pair_ft_k for the run (both modules that call it)."""
+    from dqc_tpu.ops import pbcft as jpbcft
+    from dqc_tpu.scf import kpbc as jkpbc
+    jpbcft.pbc_pair_ft_k = blocked_pbc_pair_ft_k
+    jkpbc.pbc_pair_ft_k = blocked_pbc_pair_ft_k
+
+
+def pbc_k3(name, factored):
+    """chip_smoke.py's pbc_k_h8_3mesh_* phases (module docstring)."""
+    from dqc_tpu.system.sol import Sol
+    rest = name[len("pbc_k3_"):]
+    gdf = rest.startswith("gdf_")
+    uks = rest.startswith("uks_")
+    xc = rest[4:] if (gdf or uks) else rest
+    runs = {"hf": [("hf", "ewald"), ("hf", None)],
+            "hf_ewald": [("hf", "ewald")],
+            "hf_none": [("hf", None)]}.get(xc, [(xc, "ewald")])
+    for xc, exxdiv in runs:
+        t0 = time.perf_counter()
+        sol = Sol(h8_desc(), np.eye(3) * 6.0, basis="3-21g", grid="sg2",
+                  kpts=K3_MESH)
+        if gdf:
+            sol = sol.densityfit(method="gdf")
+        opts = JOptions(mixed=False, exxdiv=exxdiv)
+        kw = {"restricted": False} if uks else {}
+        qc = (dqc_tpu.HF(sol, opts=opts, **kw) if xc == "hf"
+              else dqc_tpu.KS(sol, xc=xc, opts=opts, **kw)).run()
+        print(json.dumps({
+            "system": "H8", "alattice_bohr": 6.0, "basis": "3-21g",
+            "grid": "sg2", "kpts": K3_MESH.tolist(), "xc": xc,
+            "exxdiv": exxdiv, "route": "gdf" if gdf else "aft",
+            "restricted": not uks, "factored": factored,
+            "energy_ha": float(qc.energy()), "nao": sol.meta.nao,
+            "seconds": time.perf_counter() - t0,
+            "residual": getattr(qc, "_achieved_err", None), "tol": opts.tol,
+            "backend": jax.default_backend()}), flush=True)
+
+
 def pbc_h2_grad():
     """jax.grad of the periodic energy_fn of the H2 force cell (module
     docstring)."""
@@ -331,12 +472,18 @@ def main(names, factored=False):
         jdf.build_df_theta = factored_build_df_theta
         from dqc_tpu.scf import pbc as jpbc
         jpbc.build_pbc_gdf = factored_build_pbc_gdf
+        from dqc_tpu.scf import kpbc as jkpbc
+        jkpbc.build_kpbc_gdf = factored_build_kpbc_gdf
     for name in names:
         if name == "pbc_h2_grad":
             pbc_h2_grad()
             continue
         if name.startswith("pbc_h8_"):
             pbc_h8(name, factored)
+            continue
+        if name.startswith("pbc_k3_"):
+            _blocked_k_transforms()
+            pbc_k3(name, factored)
             continue
         if name in ("props_h2o_321g", "props_h2o_sto3g"):
             props_h2o("3-21G" if name.endswith("321g") else "STO-3G")
