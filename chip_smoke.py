@@ -36,7 +36,12 @@ k-points; K2 and K3 once per k-point per Fock build on the real embedding of
 the Bloch tables, (195,894, 32)), with `band_energies`, Bloch's theorem
 against the Gamma path on the tripled supercell H24, every k-point route on
 H8's three-point mesh against JAX-CPU anchors, PBE0 on the 2x2x2 mesh, and
-the forces of a small k-point cell. Any failed check or exception
+the forces of a small k-point cell; and the batch axis
+(`parallel/batch.energy_batch`): 8 geometries of benzene with a neural
+CustomXC through one batched SCF (K1-K3 once per Fock build for the
+batch), its loss gradient, and K1-K3 with a batch axis against their plain
+versions; the on-disk theta cache (`Mol.set_cache`) and purification
+(`scf/purify.py`) on benzene. Any failed check or exception
 ends the run with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
@@ -85,12 +90,19 @@ launches, peak, the reckoned sizes beside the measured ones, the grid's
 electron count, K2/K3 on two embedded tables against their plain versions
 and timed beside their bound, a second SCF on the same theta bit for bit,
 band energies at mesh points against the SCF's eigenvalues and at k against
--k), `pbc_k_bloch` (HF and PBE, k-mesh and H24 records and their
+-k), `pbc_k_bloch` (HF, k-mesh and H24 records and their
 difference per cell), `pbc_k_h8_3mesh_*` (HF with exxdiv "ewald" and None,
 PBE, PBE0, CAM-B3LYP, SCAN, UKS-PBE, the k-point fit with PBE),
 `pbc_k_h8_pbe0_222` (with the exchange stack's bytes and the band
 energies at an off-mesh k against -k), `pbc_k_forces` with
-`pbc_k_forces_fd[hf]` and `[pbe]`, `small`,
+`pbc_k_forces_fd[hf]` and `[pbe]`, `batch_nnxc` (8 benzene geometries in one
+batched SCF: stage seconds, iterations per member, launches per batched
+Fock build, the loss gradient against central differences, members 0 and
+7 against the unbatched energy_fn, a steady batched iteration under the
+profiler, and K1-K3 at B = 1, 3, 8 against their plain versions with
+their B = 8 times), `cache_benzene` (two runs through set_cache: the parts
+loaded, theta_s, the energies and gradients bit for bit),
+`purify_benzene` (purification against eigh), `small`,
 `kernels` (K2's and K3's rows also have their times at H27's shape,
 `pbc_h27`, and at the k-point main path's embedded shape,
 `pbc_k_h8_embedded`; K3's row
@@ -1175,6 +1187,361 @@ def nn_xc(smi_line):
         if not r["rel_diff"] <= NN_FD_GATE_REL:
             fail(f"nn_xc: parameter gradient {r['slope']!r} vs central "
                  f"difference {r['central_difference']!r}")
+    return rec
+
+
+# the batch axis (parallel/batch.py): 8 benzene geometries, Gaussian
+# displacements of 0.02 Bohr from a numpy seed, the nn_xc functional
+BATCH = 8
+BATCH_SIGMA_BOHR = 0.02
+BATCH_SEED = 14
+BATCH_MEMBER_GATE_HA = 1e-10   # members against the unbatched energy_fn
+BATCH_SIZES = (1, 3, 8)        # batched kernel checks
+# the step of the loss's central differences: the loss's slope is small
+# beside the energies' (targets near the energies), so the h^2 error of
+# its central difference, mostly E's slope times its curvature, is 2e-5
+# of it at h = 1e-4; at 1e-5 it is 100 times less, and the energies'
+# rounding over 2h stays near 1e-9 of it
+BATCH_FD_STEP = 1e-5
+PURIFY_GATE = 1e-10            # purified dm against eigh's
+
+
+def batched_kernel_checks(xc, theta_b, dm_b, smi_line):
+    """K1, K2 and K3 with a leading batch axis at benzene's shapes on the
+    batch's own tensors (eri_k and grid tables of 8 geometries, their
+    converged densities and potentials): at B = 1, 3, 8 against the plain
+    version member by member (rel <= GATE_REL), one launch per call, two
+    calls bit for bit, B = 1 bit for bit against the unbatched call; at B
+    = 8 the kernel's time, the member loop of the plain version's, one
+    batched PyTorch call's, and the bound."""
+    grid = theta_b["grid"]
+    ao, ag = grid["ao"], grid["ao_grad"]
+    T = theta_b["eri_k"]
+    with torch.no_grad():
+        dens = integrate.density_from_tables(grid, dm_b, 2, False)
+        _, vbar = integrate._pointwise_adjoints(
+            xc, dens, grid["dvol"], False, theta_b["xc_params"])
+    vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+
+    def counted(fn):
+        before = _launch_counts()
+        out = fn()
+        after = _launch_counts()
+        return out, {k: after[k] - before[k] for k in after}
+
+    recs = []
+    for nb in BATCH_SIZES:
+        args = {"ds_jk": (T[:nb], dm_b[:nb]),
+                "ds_dens_gga": (ao[:nb], ag[:nb], dm_b[:nb]),
+                "ds_vxc_gga": (ao[:nb], ag[:nb], vr[:nb], vg[:nb])}
+        for name, kern, plain in (("ds_jk", ds_jk, ds_jk_reference),
+                                  ("ds_dens_gga", ds_dens_gga,
+                                   ds_dens_reference),
+                                  ("ds_vxc_gga", ds_vxc_gga,
+                                   ds_vxc_reference)):
+            a = args[name]
+            o1, n1 = counted(lambda: kern(*a))
+            o2, _ = counted(lambda: kern(*a))
+            ref = plain(*a)
+            o1 = o1 if isinstance(o1, tuple) else (o1,)
+            o2 = o2 if isinstance(o2, tuple) else (o2,)
+            ref = ref if isinstance(ref, tuple) else (ref,)
+            torch.cuda.synchronize()
+            rec = {"kernel": name, "batch": nb, "launches_per_call": n1,
+                   "max_abs_err": 0.0, "max_rel_err": 0.0}
+            for x, y, r in zip(o1, o2, ref):
+                scale = r.abs().amax(dim=tuple(range(1, r.ndim)))
+                err = (x - r).abs().amax(dim=tuple(range(1, r.ndim)))
+                rel = float((err / scale).max())
+                rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+                rec["max_rel_err"] = max(rec["max_rel_err"], rel)
+                if not rel <= GATE_REL:
+                    fail(f"batched {name} B={nb}: rel err {rel:.3e} per "
+                         f"member > {GATE_REL}")
+                if not torch.equal(x, y):
+                    fail(f"batched {name} B={nb}: two calls differ")
+            if n1[name] != 1 or sum(n1.values()) != 1:
+                fail(f"batched {name} B={nb}: launches per call {n1}")
+            if nb == 1:
+                single = kern(*(t[0] for t in a))
+                single = single if isinstance(single, tuple) else (single,)
+                rec["bit_identical_to_unbatched"] = all(
+                    torch.equal(x[0], y) for x, y in zip(o1, single))
+                if not rec["bit_identical_to_unbatched"]:
+                    fail(f"batched {name} B=1 differs from the unbatched "
+                         "call")
+            recs.append(rec)
+    # times at B = 8, in turns; the plain version is the member loop
+    nb = BATCH_SIZES[-1]
+    n, (ng, nao) = T.shape[-1], tuple(ao.shape[-2:])
+    dmc = dm_b[:nb]
+    k1_ms, k1_plain = time_turns(lambda: ds_jk(T, dmc),
+                                 lambda: ds_jk_reference(T, dmc), reps=10)
+    k2_ms, k2_plain = time_turns(lambda: ds_dens_gga(ao, ag, dmc),
+                                 lambda: ds_dens_reference(ao, ag, dmc))
+    k3_ms, k3_plain = time_turns(lambda: ds_vxc_gga(ao, ag, vr, vg),
+                                 lambda: ds_vxc_reference(ao, ag, vr, vg))
+
+    def k1_library():
+        torch.einsum("zijkl,zkl->zij", T, dmc)
+        torch.einsum("ziabl,zal->zib", T, dmc)
+
+    def k2_library():
+        c = ao @ dmc.mT
+        (c * ao).sum(-1)
+        2.0 * (ag * c[:, None]).sum(-1)
+
+    def k3_library():
+        w = vr[..., None] * ao + 2.0 * torch.einsum("bdg,bdgi->bgi", vg, ag)
+        w.mT @ ao
+    libs = [time_ms(k1_library, 10), time_ms(k2_library, 20),
+            time_ms(k3_library, 20)]
+    k1_bytes = 8 * nb * (n ** 4 + 3 * n * n)
+    xc_bytes = 8 * nb * (4 * ng * nao + nao * nao + 4 * ng)
+    xc_flops = nb * (2 * ng * nao * nao + 8 * ng * nao)
+    timing = {}
+    for name, ms, pl, lib, b, f in (
+            ("ds_jk", k1_ms, k1_plain, libs[0], k1_bytes, 4 * nb * n ** 4),
+            ("ds_dens_gga", k2_ms, k2_plain, libs[1], xc_bytes, xc_flops),
+            ("ds_vxc_gga", k3_ms, k3_plain, libs[2], xc_bytes, xc_flops)):
+        bms, by = bound(b, f)
+        timing[name] = {"batch": nb, "ms": min(ms), "ms_runs": ms,
+                        "plain_ms": min(pl), "plain_ms_runs": pl,
+                        "library_ms": lib, "bytes_moved": b, "flops": f,
+                        "bound_ms": bms, "bound_by": by,
+                        "bound_share": bms / min(ms),
+                        "ms_per_member": min(ms) / nb, "card": smi_line}
+    return recs, timing
+
+
+def batch_loss(es, targets):
+    return torch.mean((es - targets) ** 2)
+
+
+def batch_nnxc(smi_line):
+    """The batch axis at full width: 8 benzene/def2-SVP geometries (seeded
+    0.02-Bohr displacements) with the nn_xc functional, tol 1e-10, through
+    parallel/batch.energy_batch: the MSE loss against seeded targets and
+    its gradient in xc_params only. Gates: members 0 and 7 within
+    BATCH_MEMBER_GATE_HA of the unbatched energy_fn at their geometries;
+    the loss gradient against central differences along two seeded
+    directions (NN_FD_GATE_REL); one launch each of K1, K2 and K3 per
+    batched Fock build, and the SCF's launches as its Fock builds give
+    them. Records the seconds of theta, the SCF and the backward,
+    iterations per member, the peak, a steady batched iteration under the
+    profiler, and the batched kernel checks."""
+    from dqc_tpu_torch.convert import xc_params_from_numpy
+    from dqc_tpu_torch.parallel import batch as pbatch
+    from dqc_tpu_torch.utils.datastruct import batch_params, member_params
+    from dqc_tpu_torch.xc.custom import CustomXC
+    params = xc_params_from_numpy(nn_params_np(), device=DEV)
+    xc = CustomXC(nn_edens, params, family=2, key="nnxc")
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    calc = dq.KS(mol, xc=xc, opts=dq.SCFOptions(tol=1e-10))
+    rng = np.random.default_rng(BATCH_SEED)
+    pos0 = mol.atompos.detach().cpu().numpy()
+    pos_b = pos0 + BATCH_SIGMA_BOHR * rng.standard_normal(
+        (BATCH,) + pos0.shape)
+    targets = torch.as_tensor(NN_ANCHOR_HA + 0.05 * rng.standard_normal(
+        BATCH), device=DEV)
+    p0 = calc._all_params()
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in p0["xc_params"]["nnxc"].items()}
+    pb = batch_params(p0, pos_b)
+    pb["xc_params"] = {"nnxc": leaves}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    es = pbatch.energy_batch(calc, pb, st)
+    loss = batch_loss(es, targets)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    launches = path_counts()
+    launches_sad = sad_counts()
+    peak_forward = torch.cuda.max_memory_allocated()
+    reset_counts()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    launches_grad = path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    g = dict(zip(leaves, grads))
+    es_np = es.detach().cpu().numpy()
+    iters = st["iterations"]
+    builds = max(iters) + 1          # the start Fock and one per iteration
+    rec = {"batch": BATCH, "system": "benzene", "basis": "def2-svp",
+           "grid": 2, "nao": mol.meta.nao, "xc": "CustomXC family 2 (nn_xc)",
+           "sigma_bohr": BATCH_SIGMA_BOHR, "seed": BATCH_SEED,
+           "tol": calc.opts.tol, "energies_ha": es_np.tolist(),
+           "loss": float(loss.detach()), "theta_s": st["theta_s"],
+           "scf_s": st["scf_s"], "forward_s": t1 - t0,
+           "backward_s": t2 - t1, "iterations": iters,
+           "residuals": st["residual"], "fock_builds": builds,
+           "launches": launches, "launches_sad": launches_sad,
+           "launches_in_gradient": launches_grad,
+           "gmres": st["gmres"], "peak_device_bytes_forward": peak_forward,
+           "peak_device_bytes": peak, "card": smi_line}
+    if not np.all(np.isfinite(es_np)) or es_np.shape != (BATCH,):
+        fail(f"batch_nnxc: energies {es_np}")
+    if not max(st["residual"]) <= calc.opts.tol:
+        fail(f"batch_nnxc: residuals {st['residual']} above tol")
+    del es, loss, grads
+
+    # the stacked theta once more, without a graph: the central
+    # differences, the profile of a steady batched iteration and the
+    # batched kernel checks run on it
+    with torch.no_grad():
+        theta_b = pbatch.build_theta_batch(calc, batch_params(p0, pos_b))
+        dm_b = pbatch.solve_batch(calc, dict(theta_b, xc_params={
+            "nnxc": params})).contiguous()
+    eng = calc.engine
+    reset_counts()
+    with torch.no_grad():
+        eng.fock(dm_b, dict(theta_b, xc_params={"nnxc": params}))
+    per_build = path_counts()
+    rec["launches_per_fock_build"] = per_build
+    want = {"ds_jk": 1, "ds_dens_gga": 1, "ds_vxc_gga": 1, "ds_jk_eri_lr": 0}
+    if per_build != want:
+        fail(f"batch_nnxc: one batched Fock build launched {per_build}")
+    scf_want = {"ds_jk": builds + 1, "ds_dens_gga": builds + 1,
+                "ds_vxc_gga": builds, "ds_jk_eri_lr": 0}
+    if launches != scf_want:
+        fail(f"batch_nnxc: the batched SCF and its energies launched "
+             f"{launches} for {builds} Fock builds, expected {scf_want}")
+    if not all(launches_grad[k] > 0 for k in ("ds_jk", "ds_dens_gga",
+                                              "ds_vxc_gga")):
+        fail(f"batch_nnxc: kernels in the gradient: {launches_grad}")
+    theta_nn = dict(theta_b, xc_params={"nnxc": params})
+    rec["iteration_profile"] = iteration_profile(eng, theta_nn, dm_b,
+                                                 smi_line)
+
+    # central differences of the loss along two seeded directions
+    fd = []
+    tf = time.perf_counter()
+    rngd = np.random.default_rng(BATCH_SEED + 1)
+    for _ in range(2):
+        v = {k: torch.as_tensor(rngd.standard_normal(tuple(t.shape)),
+                                device=DEV) for k, t in params.items()}
+        slope = sum(float((g[k] * v[k]).sum()) for k in v)
+        ls = []
+        for sgn in (1, -1):
+            th = dict(theta_b, xc_params={"nnxc": {
+                k: params[k] + sgn * BATCH_FD_STEP * v[k] for k in params}})
+            with torch.no_grad():
+                d = pbatch.solve_batch(calc, th, dm_b)
+                ls.append(float(batch_loss(eng.energy(d, th), targets)))
+        cd = (ls[0] - ls[1]) / (2 * BATCH_FD_STEP)
+        fd.append({"slope": slope, "central_difference": cd,
+                   "rel_diff": abs(cd - slope) / abs(slope)})
+    rec["loss_grad_fd"] = {"step": BATCH_FD_STEP, "directions": fd,
+                           "seconds": time.perf_counter() - tf,
+                           "gate_rel": NN_FD_GATE_REL}
+
+    # members 0 and 7 against the unbatched energy_fn at their geometries
+    members = {}
+    for m in (0, BATCH - 1):
+        tm = time.perf_counter()
+        with torch.no_grad():
+            em = float(calc.energy_fn(member_params(
+                batch_params(p0, pos_b), m)))
+        members[str(m)] = {"unbatched_ha": em, "batched_ha": float(es_np[m]),
+                           "diff_ha": float(es_np[m]) - em,
+                           "seconds": time.perf_counter() - tm}
+    rec["members_vs_unbatched"] = members
+    rec["member_gate_ha"] = BATCH_MEMBER_GATE_HA
+    recs, timing = batched_kernel_checks(xc, theta_nn, dm_b, smi_line)
+    rec["kernel_checks"] = recs
+    rec["kernels"] = timing
+    emit({"batch_nnxc": rec})
+    for m, r in members.items():
+        if not abs(r["diff_ha"]) <= BATCH_MEMBER_GATE_HA:
+            fail(f"batch_nnxc: member {m} {r['batched_ha']!r} vs unbatched "
+                 f"{r['unbatched_ha']!r}")
+    for r in fd:
+        if not r["rel_diff"] <= NN_FD_GATE_REL:
+            fail(f"batch_nnxc: loss gradient {r['slope']!r} vs central "
+                 f"difference {r['central_difference']!r}")
+    return rec
+
+
+def cache_benzene(smi_line):
+    """B3LYP benzene/def2-SVP twice through Mol.set_cache on a temporary
+    file: the first run builds theta and stores its parts, the second loads
+    them (theta_cached, no eri_dense time, theta_s); the energies bit for
+    bit; energy_grad after the cached run bit for bit against the uncached
+    one (derivatives rebuild theta from the params)."""
+    import tempfile
+    rec = {"card": smi_line}
+    with tempfile.TemporaryDirectory() as tmp:
+        fname = os.path.join(tmp, "benzene_theta.npz")
+        calcs = []
+        for run in ("build", "load"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+            calc = dq.KS(mol.set_cache(fname), xc="b3lyp").run()
+            st = calc.stats
+            rec[run] = {"theta_s": st["theta_s"], "scf_s": st["scf_s"],
+                        "eri_dense_s": st.get("eri_s"),
+                        "grid_s": st.get("grid_s"),
+                        "theta_cached": st["theta_cached"],
+                        "iterations": st["iterations"],
+                        "energy_ha": float(calc.energy()),
+                        "total_s": time.perf_counter() - t0}
+            calcs.append(calc)
+        rec["file_bytes"] = os.path.getsize(fname)
+        rec["signature"] = mol.cache_signature
+    e_equal = bool(torch.equal(calcs[0].energy(), calcs[1].energy()))
+    grads = []
+    for calc in calcs:
+        grads.append(calc.energy_grad()["basis"]["atompos"])
+        calc._theta = None
+    g_equal = bool(torch.equal(grads[0], grads[1]))
+    rec.update(energy_bit_identical=e_equal, grad_bit_identical=g_equal,
+               grad_max_abs_diff=float((grads[0] - grads[1]).abs().max()),
+               grad_s=calcs[1].stats["grad_s"])
+    emit({"cache_benzene": rec})
+    if rec["build"]["theta_cached"] != [] or \
+            rec["load"]["theta_cached"] != ["core", "grid"]:
+        fail(f"cache_benzene: parts loaded {rec['build']['theta_cached']} "
+             f"then {rec['load']['theta_cached']}")
+    if rec["load"]["eri_dense_s"] is not None:
+        fail("cache_benzene: the cached run built eri_dense")
+    if not e_equal:
+        fail("cache_benzene: the cached energy differs from the built one")
+    if not g_equal:
+        fail("cache_benzene: energy_grad after the cached run differs from "
+             "the uncached one")
+    return rec
+
+
+def purify_benzene(calc, smi_line):
+    """scf/purify.fock_to_dm_purify against eigh (engine.dm_from_fock) on
+    benzene's converged B3LYP Fock matrix: the density matrices within
+    PURIFY_GATE, and both times."""
+    from dqc_tpu_torch.scf.purify import PURIFY_ITERS, fock_to_dm_purify
+    theta, eng = calc._theta, calc.engine
+    dm = calc.aodm().contiguous()
+    with torch.no_grad():
+        fock = eng.fock(dm, theta)
+        dm_e = eng.dm_from_fock(fock, theta)
+        dm_p = fock_to_dm_purify(fock, theta["X"], theta["keep"],
+                                 theta["occ"])
+        eigh_ms = time_ms(lambda: eng.dm_from_fock(fock, theta), 10)
+        pur_ms = time_ms(lambda: fock_to_dm_purify(
+            fock, theta["X"], theta["keep"], theta["occ"]), 10)
+    err = float((dm_p - dm_e).abs().max())
+    rec = {"nao": dm.shape[0], "iters": PURIFY_ITERS, "max_abs_diff": err,
+           "gate": PURIFY_GATE, "eigh_ms": eigh_ms, "purify_ms": pur_ms,
+           "trace_dm_ovlp": float(torch.einsum("ij,ji->", dm_p,
+                                               theta["ovlp"])),
+           "card": smi_line}
+    emit({"purify_benzene": rec})
+    if not err <= PURIFY_GATE:
+        fail(f"purify_benzene: purified dm {err:.3e} from eigh's")
     return rec
 
 
@@ -2764,16 +3131,22 @@ def pbc_k_h8_pbe(smi_line):
     return rec
 
 
+# the functionals of the Bloch check: HF only. Its PBE case (51 s of H24's
+# Becke weights on the card) is cut to pay for the batch phase; the k-point
+# PBE path stays held by pbc_k_h8_pbe and its JAX-CPU anchor
+BLOCH_CASES = (("hf", None),)
+
+
 def pbc_k_bloch(smi_line):
     """Bloch's theorem at complex phases on the card: H8 on a 3x1x1 mesh
     against the Gamma path on H24, the supercell tripled along x, per H8
-    cell, HF and PBE (K_BLOCH_GATES_HA)."""
+    cell, for the functionals of BLOCH_CASES (K_BLOCH_GATES_HA)."""
     mesh = mp_mesh((3, 1, 1), 2 * PBC_A)
     h8 = [[float(v) for v in a.split()[1:]] for a in h_supercell(2).split(";")]
     h24 = "; ".join(f"H {p[0] + 2 * PBC_A * c} {p[1]} {p[2]}"
                     for c in range(3) for p in h8)
     out = {}
-    for key, xc in (("hf", None), ("pbe", "pbe")):
+    for key, xc in BLOCH_CASES:
         sk = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
                     grid="sg2", kpts=mesh)
         calc, rk = pbc_k_phase(f"pbc_k_bloch[{key}_3x1x1]", sk, xc, None,
@@ -3264,6 +3637,8 @@ def main():
     theta_zz = quadrupole_zz(calc)
     # the variational solver on the main path's theta, against its DIIS
     var_rec = variational_benzene(smi_line, mol, theta, e_kernel)
+    # purification against eigh on the main path's converged Fock matrix
+    purify_benzene(calc, smi_line)
     free_device()
 
     # 9. the blocked route on the main path's molecule, held against K1 on
@@ -3304,6 +3679,13 @@ def main():
     mgga_rec = meta_gga(smi_line)
     free_device()
     nn_rec = nn_xc(smi_line)
+    free_device()
+    # the batch axis: 8 geometries of benzene through one batched SCF (one
+    # launch of each kernel per Fock build), the NN loss and its gradient;
+    # the on-disk theta cache
+    batch_rec = batch_nnxc(smi_line)
+    free_device()
+    cache_benzene(smi_line)
     free_device()
     vitc_rec = vitamin_c(smi_line)
     free_device()
@@ -3363,6 +3745,8 @@ def main():
                "cam_b3lyp": cam_rec["launches"],
                "meta_gga": mgga_rec["launches"], "nn_xc": nn_rec["launches"],
                "nn_xc_gradient": nn_rec["launches_in_gradient"],
+               "batch_nnxc": batch_rec["launches"],
+               "batch_nnxc_gradient": batch_rec["launches_in_gradient"],
                "vitamin_c": vitc_rec["launches"],
                "df_b3lyp": df_rec["launches"],
                "df_cam_b3lyp": df_cam_rec["launches"],
@@ -3397,6 +3781,7 @@ def main():
                    "cam_b3lyp": cam_rec["launches_sad"],
                    "meta_gga": mgga_rec["launches_sad"],
                    "nn_xc": nn_rec["launches_sad"],
+                   "batch_nnxc": batch_rec["launches_sad"],
                    "vitamin_c": vitc_rec["launches_sad"],
                    "df_b3lyp": df_rec["launches_sad"],
                    "df_cam_b3lyp": df_cam_rec["launches_sad"],
@@ -3471,6 +3856,12 @@ def main():
         "plain_ms_runs_hf_phase": k1_hf["plain_ms_runs"],
         "gate_rel": GATE_REL, "checks": checks,
         "gbytes_per_s": k1_hf["bytes_moved"] / (min(k1_ms) * 1e-3) / 1e9,
+        "batched": dict(batch_rec["kernels"]["ds_jk"],
+                        launches_per_fock_build=batch_rec[
+                            "launches_per_fock_build"]["ds_jk"],
+                        max_rel_err_checks=max(
+                            c["max_rel_err"] for c in batch_rec[
+                                "kernel_checks"] if c["kernel"] == "ds_jk")),
         "card": smi_line,
     }, {
         "name": "ds_dens_gga", "route": "cuda",
@@ -3495,6 +3886,12 @@ def main():
         "gflop_per_s": k2_flops / (min(k2_ms) * 1e-3) / 1e9,
         "pbc_h27": h27_rec["kernels"]["ds_dens_gga"],
         "pbc_k_h8_embedded": k_main["kernels"]["ds_dens_gga"],
+        "batched": dict(batch_rec["kernels"]["ds_dens_gga"],
+                        launches_per_fock_build=batch_rec[
+                            "launches_per_fock_build"]["ds_dens_gga"],
+                        max_rel_err_checks=max(
+                            c["max_rel_err"] for c in batch_rec[
+                                "kernel_checks"] if c["kernel"] == "ds_dens_gga")),
         "card": smi_line,
     }, {
         "name": "ds_vxc_gga", "route": "cuda",
@@ -3519,6 +3916,12 @@ def main():
         "resources": ptxas_summary(builds["ds_vxc_gga"]["log"]),
         "pbc_h27": h27_rec["kernels"]["ds_vxc_gga"],
         "pbc_k_h8_embedded": k_main["kernels"]["ds_vxc_gga"],
+        "batched": dict(batch_rec["kernels"]["ds_vxc_gga"],
+                        launches_per_fock_build=batch_rec[
+                            "launches_per_fock_build"]["ds_vxc_gga"],
+                        max_rel_err_checks=max(
+                            c["max_rel_err"] for c in batch_rec[
+                                "kernel_checks"] if c["kernel"] == "ds_vxc_gga")),
         "card": smi_line,
     }], "seconds": time.perf_counter() - t_start})
     print(smi_line, flush=True)

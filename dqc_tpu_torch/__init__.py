@@ -26,7 +26,10 @@ and the XC terms on a cell-wrapped grid through the same two kernels; or
 with k-points (Sol(..., kpts=...)): the complex k-point SCF on Bloch pair
 transforms and Bloch grid tables (the grid kernels on their real
 embedding), k-point exact exchange, and band energies at any k
-(band_energies).
+(band_energies). A batch of geometries of one molecule runs as one SCF
+(parallel/batch.energy_batch: the kernels launched once per Fock build
+for the batch), theta can be kept on disk between runs (Mol.set_cache,
+utils/cache.py), and examples/ holds the runnable examples.
 
 Calculations run on the CUDA card unless the caller passes device="cpu";
 without a card and without that argument the entry points raise.

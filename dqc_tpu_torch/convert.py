@@ -191,3 +191,24 @@ def xc_params_from_numpy(tree, device=None):
     if isinstance(tree, (list, tuple)):
         return type(tree)(xc_params_from_numpy(v, device) for v in tree)
     return _f64(tree, device)
+
+
+def batch_params_from_numpy(params_np: dict, device=None) -> dict:
+    """A batched params tree of the port (parallel/batch.energy_batch) from
+    the JAX package's params tree as numpy with a leading batch axis on
+    basis.atompos (B, natom, 3) and, where they vary, atomzs (B, natom):
+    the tree a jax.vmap over geometries maps. atomzs given per molecule
+    (natom,) is shared by every member; xc_params, when present, stay
+    shared (xc_params_from_numpy)."""
+    device = resolve_device(device)
+    basis = params_np["basis"]
+    pos = np.asarray(basis["atompos"], dtype=np.float64)
+    if pos.ndim != 3:
+        raise ValueError(f"atompos must be (B, natom, 3), got {pos.shape}")
+    out = {"basis": params_from_numpy(basis, device)}
+    zs = np.asarray(params_np["atomzs"], dtype=np.float64)
+    out["atomzs"] = _f64(np.broadcast_to(zs, pos.shape[:2]), device)
+    if params_np.get("xc_params") is not None:
+        out["xc_params"] = xc_params_from_numpy(params_np["xc_params"],
+                                                device)
+    return out

@@ -14,6 +14,14 @@
 // of the four tables T: four GEMMs, 8 ng nao^2 operations. One GEMM does:
 // 2 ng nao^2 + 8 ng nao.
 //
+// Batch: B members at once (the counterpart of jax.vmap of the TPU kernel,
+// which adds a grid axis): member m reads its tables and dm at the member
+// strides the caller passes and writes rho[m], gdot[m]. The member is the
+// grid's y axis; each member keeps its own blocks, panels and tile walk,
+// so a member's result has the bits of its unbatched call at the same
+// block count, and one launch serves the whole batch. A batch of one
+// takes the variant without the member offsets.
+//
 // Bound: bytes. The four tables are 4 ng nao * 8 bytes; at ng = 78,144,
 // nao = 114 the function moves 287.7 MB, 0.0859 ms at 3.35 TB/s, against
 // 2.10 GFLOP, 0.031 ms at the tensor cores' 67 TFLOP/s. On the f64 FMA
@@ -149,13 +157,24 @@ __device__ __forceinline__ void copy_rows(double* dst, int ds,
   }
 }
 
-template <int kStages>
+template <int kStages, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
 ds_dens_gga_kernel(const double* __restrict__ ao,
                    const double* __restrict__ ag,
                    const double* __restrict__ dm,
                    double* __restrict__ rho, double* __restrict__ gdot,
-                   int ng, int nao, int panel, int wide) {
+                   int ng, int nao, int panel, int wide, long long ao_member,
+                   long long ag_member, long long dm_member) {
+  // this block's member: its tables, dm and outputs (a batch of one takes
+  // the variant without the offsets, the unbatched kernel's code)
+  if (kBatched) {
+    const long long m = blockIdx.y;
+    ao += m * ao_member;
+    ag += m * ag_member;
+    dm += m * dm_member;
+    rho += m * ng;
+    gdot += m * 3LL * ng;
+  }
   // stage st: A [kBM][sa], then the epilogue tables [ne][kBM][se];
   // after the ring: the reduction buffer [kWarps][4][kBM]
   extern __shared__ __align__(128) double smem[];
@@ -320,7 +339,7 @@ constexpr int kMaxDevices = 64;
 // the current device and every later launch there; so it is asked once per
 // device and stage count, for the largest plan seen so far (under a lock:
 // ctypes calls in without the GIL).
-template <int kStages>
+template <int kStages, bool kBatched>
 cudaError_t opt_in(int smem_bytes) {
   static std::mutex mu;
   static int granted[kMaxDevices] = {};
@@ -330,23 +349,29 @@ cudaError_t opt_in(int smem_bytes) {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (granted[dev] >= smem_bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(ds_dens_gga_kernel<kStages>,
+  e = cudaFuncSetAttribute(ds_dens_gga_kernel<kStages, kBatched>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
   if (e == cudaSuccess) granted[dev] = smem_bytes;
   return e;
 }
 
-template <int kStages>
+template <int kStages, bool kBatched>
 int launch(const double* ao, const double* ag, const double* dm, double* rho,
            double* gdot, int ng, int nao, int panel, int smem_bytes,
-           int blocks, cudaStream_t stream) {
-  const cudaError_t e = opt_in<kStages>(smem_bytes);
+           int blocks, int batch, long long ao_member, long long ag_member,
+           long long dm_member, cudaStream_t stream) {
+  const cudaError_t e = opt_in<kStages, kBatched>(smem_bytes);
   if (e != cudaSuccess) return (int)e;
+  // 16-byte copies where every member's rows start on 16 bytes
   const int wide = nao % 2 == 0 && (uintptr_t)ao % 16 == 0 &&
-                   (uintptr_t)ag % 16 == 0;
-  ds_dens_gga_kernel<kStages><<<blocks, kThreads, smem_bytes, stream>>>(
-      ao, ag, dm, rho, gdot, ng, nao, panel, wide);
+                   (uintptr_t)ag % 16 == 0 &&
+                   (batch == 1 || (ao_member % 2 == 0 && ag_member % 2 == 0));
+  const dim3 grid((unsigned)blocks, (unsigned)batch);
+  ds_dens_gga_kernel<kStages, kBatched>
+      <<<grid, kThreads, smem_bytes, stream>>>(
+      ao, ag, dm, rho, gdot, ng, nao, panel, wide, ao_member, ag_member,
+      dm_member);
   return (int)cudaGetLastError();
 }
 
@@ -354,17 +379,23 @@ int launch(const double* ao, const double* ag, const double* dm, double* rho,
 
 // Returns 0 or a cudaError_t: of the launch that was refused, or
 // cudaErrorInvalidValue for a plan that does not match this kernel.
-// ao (ng, nao), ag (3, ng, nao), dm (nao, nao), rho (ng), gdot (3, ng); all
-// contiguous float64 on the device of `stream`. The plan (tile_points,
-// panel, stages, smem_bytes, blocks) comes from hopper_xc.dens_plan.
+// For each of the `batch` members m: ao + m ao_member (ng, nao), ag + m
+// ag_member (3, ng, nao), dm + m dm_member (nao, nao) (strides in doubles;
+// each member's tables and dm contiguous), rho (batch, ng), gdot (batch, 3,
+// ng); all float64 on the device of `stream`. The plan (tile_points,
+// panel, stages, smem_bytes, blocks per member) comes from
+// hopper_xc.dens_plan(ng, nao, sms, batch).
 extern "C" int ds_dens_gga_launch(const void* ao, const void* ag,
                                   const void* dm, void* rho, void* gdot,
-                                  int ng, int nao, int tile_points, int panel,
-                                  int stages, int smem_bytes, int blocks,
-                                  void* stream) {
+                                  int ng, int nao, int batch,
+                                  long long ao_member, long long ag_member,
+                                  long long dm_member, int tile_points,
+                                  int panel, int stages, int smem_bytes,
+                                  int blocks, void* stream) {
   if (ng <= 0 || nao <= 0 || blocks <= 0 || tile_points != kBM ||
       panel <= 0 || panel % 8 != 0 || panel > kMaxPanel ||
-      (stages != 2 && stages != 3))
+      (stages != 2 && stages != 3) || batch <= 0 || batch > 65535 ||
+      ao_member < 0 || ag_member < 0 || dm_member < 0)
     return (int)cudaErrorInvalidValue;
   const long need = 8L * (stages * stage_doubles(panel, nao) + kRed);
   if (need != smem_bytes) return (int)cudaErrorInvalidValue;
@@ -372,9 +403,19 @@ extern "C" int ds_dens_gga_launch(const void* ao, const void* ag,
   const double* g = (const double*)ag;
   const double* d = (const double*)dm;
   cudaStream_t st = (cudaStream_t)stream;
+  double* r = (double*)rho;
+  double* gd = (double*)gdot;
+  if (batch == 1)
+    return stages == 3
+               ? launch<3, false>(a, g, d, r, gd, ng, nao, panel, smem_bytes,
+                                  blocks, 1, 0, 0, 0, st)
+               : launch<2, false>(a, g, d, r, gd, ng, nao, panel, smem_bytes,
+                                  blocks, 1, 0, 0, 0, st);
   return stages == 3
-             ? launch<3>(a, g, d, (double*)rho, (double*)gdot, ng, nao, panel,
-                         smem_bytes, blocks, st)
-             : launch<2>(a, g, d, (double*)rho, (double*)gdot, ng, nao, panel,
-                         smem_bytes, blocks, st);
+             ? launch<3, true>(a, g, d, r, gd, ng, nao, panel, smem_bytes,
+                               blocks, batch, ao_member, ag_member, dm_member,
+                               st)
+             : launch<2, true>(a, g, d, r, gd, ng, nao, panel, smem_bytes,
+                               blocks, batch, ao_member, ag_member, dm_member,
+                               st);
 }

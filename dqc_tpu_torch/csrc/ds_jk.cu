@@ -11,6 +11,13 @@
 // have any symmetry, nor dm; n is anything from 1 to 256 (64-bit offsets;
 // the dense route stops at n = 215).
 //
+// Batch: B members at once (the counterpart of jax.vmap of the TPU kernel,
+// which adds a grid axis). Member m reads T + m * t_member and dm + m *
+// dm_member (strides in doubles; B = 1 is the unbatched call) and writes
+// out_trail[m], out_mid[m]. The B n^2 tiles (m, i, a) form one index t =
+// (m n + i) n + a, and the launch below spreads all of them over the
+// card's multiprocessors, so one launch serves the whole batch.
+//
 // Bound: bytes. T is read once (n^4 * 8 B; 1,351,168,128 B at n = 114) for
 // 4 n^4 float64 operations, half an operation per byte: the f64 units would
 // be the limit only above about 60 TB/s. At the 3.35 TB/s of the H100 SXM
@@ -50,9 +57,12 @@
 //     copied in bulk beside T's rows (dm stays in L2; its rows go to shared
 //     memory with the stage). Either way a consumer reads dm[b,l] from
 //     shared memory, never through L1/L2 on the per-element path.
+//   * Batched: a block's tile range may cross from member m to m + 1;
+//     with dm in shared memory the consumers then load the next member's dm
+//     between two named barriers (the producer never reads dm there).
 //   * A second small kernel adds, per tile, the 16 warp slots of K in warp
-//     order and, per i, the J slots of the blocks that share i in block
-//     order.
+//     order and, per row (m, i), the J slots of the blocks that share it in
+//     block order.
 // No floating-point atomics, and every sum has a fixed order, so two
 // launches give the same bits.
 //
@@ -174,11 +184,41 @@ __device__ __forceinline__ Span span_of(const double* p, long count) {
   return {lo, (uint32_t)(hi - lo), (int)((a - lo) >> 3)};
 }
 
+// A block's tiles in order: tile t = (m n + i) n + a is T[m, i, a, :, :]
+// at T + m t_member + (t mod n^2) n^2, beside member m's dm. Advanced one
+// tile at a time, with no division on the per-stage path.
+struct TileWalk {
+  const double* tile;   // the current tile's first row
+  const double* dmm;    // its member's dm
+  long left;            // tiles of the member from this one to its end
+
+  __device__ __forceinline__ TileWalk(const double* T, const double* dm,
+                                      long t, long n2, long long t_member,
+                                      long long dm_member)
+      : tile(T + (t / n2) * t_member + (t % n2) * n2),
+        dmm(dm + (t / n2) * dm_member),
+        left(n2 - t % n2) {}
+
+  // the next tile; true when it is the first of the next member
+  __device__ __forceinline__ bool next(long n2, long long t_member,
+                                       long long dm_member) {
+    if (--left > 0) {
+      tile += n2;
+      return false;
+    }
+    left = n2;
+    tile += t_member - (n2 - 1) * n2;
+    dmm += dm_member;
+    return true;
+  }
+};
+
 template <bool kDmShared>
 __global__ void __launch_bounds__(kThreads, 1)
 ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
              double* __restrict__ k_part, double* __restrict__ mid_part,
-             int n, int tiles_per_block, int stage_rows, int stages,
+             int n, int batch, long long t_member, long long dm_member,
+             int tiles_per_block, int stage_rows, int stages,
              int stage_doubles, int islots, int dm_offset, int bar_offset) {
   extern __shared__ __align__(128) unsigned char smem[];
   double* ring = reinterpret_cast<double*>(smem);
@@ -193,7 +233,7 @@ ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
   const int lane = threadIdx.x & 31;
   const long n2 = (long)n * n;
   const long t0 = (long)blockIdx.x * tiles_per_block;
-  const long t1 = lmin(t0 + tiles_per_block, n2);
+  const long t1 = lmin(t0 + tiles_per_block, (long)batch * n2);
   const long n_stages = (t1 - t0) * ((n + stage_rows - 1) / stage_rows);
 
   if (threadIdx.x == 0) {
@@ -209,24 +249,27 @@ ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
     if (lane == 0) {
       int s = 0, b0 = 0;
       uint32_t round = 0;
-      long t = t0;
+      TileWalk w(T, dm, t0, n2, t_member, dm_member);
       for (long k = 0; k < n_stages; ++k) {
         if (round > 0) mbar_wait(&empty[s], (round - 1) & 1);
         const int g = (int)lmin(stage_rows, n - b0);
-        const Span ts = span_of(T + t * n2 + (long)b0 * n, (long)g * n);
+        const Span ts = span_of(w.tile + (long)b0 * n, (long)g * n);
         double* dst = ring + (long)s * stage_doubles;
         if (kDmShared) {
           mbar_expect_tx(&full[s], ts.bytes);
           bulk_load(dst, (const void*)ts.lo, ts.bytes, &full[s]);
         } else {
-          const Span ds = span_of(dm + (long)b0 * n, (long)g * n);
+          const Span ds = span_of(w.dmm + (long)b0 * n, (long)g * n);
           mbar_expect_tx(&full[s], ts.bytes + ds.bytes);
           bulk_load(dst, (const void*)ts.lo, ts.bytes, &full[s]);
           bulk_load(dst + dm_half, (const void*)ds.lo, ds.bytes, &full[s]);
         }
         if (++s == stages) { s = 0; ++round; }
         b0 += stage_rows;
-        if (b0 >= n) { b0 = 0; ++t; }
+        if (b0 >= n) {
+          b0 = 0;
+          w.next(n2, t_member, dm_member);
+        }
       }
     }
     return;
@@ -234,9 +277,10 @@ ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
 
   // consumers: dm into shared memory (when it fits) while the producer's
   // first copies are already in flight
+  TileWalk w(T, dm, t0, n2, t_member, dm_member);
   if (kDmShared) {
     for (long x = threadIdx.x; x < n2; x += 32 * kConsumerWarps)
-      dm_s[x] = dm[x];
+      dm_s[x] = w.dmm[x];
     asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kConsumerWarps) : "memory");
   }
 
@@ -254,14 +298,15 @@ ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
   const long i_first = i;
   int s = 0, b0 = 0;
   uint32_t phase = 0;
-  load_row<kDmShared>(dma, (kDmShared ? dm_s : dm) + (long)a * n, n, lane);
+  load_row<kDmShared>(dma, (kDmShared ? dm_s : w.dmm) + (long)a * n, n,
+                      lane);
   for (long k = 0; k < n_stages; ++k) {
     const int g = (int)lmin(stage_rows, n - b0);
     const double* stage = ring + (long)s * stage_doubles;
-    const double* rows = stage + span_of(T + t * n2 + (long)b0 * n, 0).lead;
+    const double* rows = stage + span_of(w.tile + (long)b0 * n, 0).lead;
     const double* dmb =
         kDmShared ? dm_s + (long)b0 * n
-                  : stage + dm_half + span_of(dm + (long)b0 * n, 0).lead;
+                  : stage + dm_half + span_of(w.dmm + (long)b0 * n, 0).lead;
     const int m0 = b0 / kConsumerWarps;
     mbar_wait(&full[s], phase);
 #pragma unroll
@@ -306,8 +351,20 @@ ds_jk_stream(const double* __restrict__ T, const double* __restrict__ dm,
     b0 = 0;
     ++t;
     if (++a == n) { a = 0; ++i; }
-    if (t < t1)
-      load_row<kDmShared>(dma, (kDmShared ? dm_s : dm) + (long)a * n, n, lane);
+    const bool new_member = w.next(n2, t_member, dm_member);
+    if (t >= t1) continue;
+    if (kDmShared && new_member) {
+      // a new member: every consumer warp is done with the last one's dm
+      // (all of them walk the same tiles), then its dm replaces it
+      asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kConsumerWarps)
+                   : "memory");
+      for (long x = threadIdx.x; x < n2; x += 32 * kConsumerWarps)
+        dm_s[x] = w.dmm[x];
+      asm volatile("bar.sync 1, %0;\n" :: "n"(32 * kConsumerWarps)
+                   : "memory");
+    }
+    load_row<kDmShared>(dma, (kDmShared ? dm_s : w.dmm) + (long)a * n, n,
+                        lane);
   }
 }
 
@@ -361,13 +418,14 @@ cudaError_t opt_in(int smem_bytes) {
 }
 
 // Does the plan fit this kernel? Checks, lays out nothing.
-bool plan_fits(int n, int blocks, int tiles_per_block, int stage_rows,
-               int stages, int stage_doubles, int dm_shared, int islots,
-               int dm_offset, int bar_offset, int smem_bytes) {
-  if (n <= 0 || n > kMaxN || blocks <= 0 || tiles_per_block <= 0 ||
-      islots <= 0 || (dm_shared != 0 && dm_shared != 1))
+bool plan_fits(int n, int batch, int blocks, int tiles_per_block,
+               int stage_rows, int stages, int stage_doubles, int dm_shared,
+               int islots, int dm_offset, int bar_offset, int smem_bytes) {
+  if (n <= 0 || n > kMaxN || batch <= 0 || blocks <= 0 ||
+      tiles_per_block <= 0 || islots <= 0 ||
+      (dm_shared != 0 && dm_shared != 1))
     return false;
-  const long n2 = (long)n * n;
+  const long n2 = (long)n * n * batch;   // all tiles of the batch
   if ((long)blocks * tiles_per_block < n2 ||
       (long)(blocks - 1) * tiles_per_block >= n2)
     return false;
@@ -379,14 +437,14 @@ bool plan_fits(int n, int blocks, int tiles_per_block, int stage_rows,
       stages > kMaxStages || part % 16 != 0 || part < rows ||
       (!dm_shared && stage_doubles % 32 != 0))
     return false;
-  for (long q = 0; q < blocks; ++q) {   // a J slot for every i a block meets
+  for (long q = 0; q < blocks; ++q) {   // a J slot for every row it meets
     const long t0 = q * tiles_per_block;
     const long t1 = lmin(t0 + tiles_per_block, n2);
     if ((t1 - 1) / n - t0 / n >= islots) return false;
   }
   const long ring_end = 8L * stage_doubles * stages;
   if (dm_offset < ring_end || dm_offset % 16 != 0) return false;
-  const long dm_end = (long)dm_offset + (dm_shared ? 8 * n2 : 0);
+  const long dm_end = (long)dm_offset + (dm_shared ? 8L * n * n : 0);
   if (bar_offset < dm_end || bar_offset % 8 != 0) return false;
   return (long)bar_offset + 16L * stages <= smem_bytes &&
          smem_bytes <= kSmemLimit;
@@ -394,14 +452,16 @@ bool plan_fits(int n, int blocks, int tiles_per_block, int stage_rows,
 
 template <bool kDmShared>
 int launch(const double* T, const double* dm, double* k_part, double* mid_part,
-           int n, int blocks, int tiles_per_block, int stage_rows, int stages,
+           int n, int batch, long long t_member, long long dm_member,
+           int blocks, int tiles_per_block, int stage_rows, int stages,
            int stage_doubles, int islots, int dm_offset, int bar_offset,
            int smem_bytes, cudaStream_t stream) {
   const cudaError_t e = opt_in<kDmShared>(smem_bytes);
   if (e != cudaSuccess) return (int)e;
   ds_jk_stream<kDmShared><<<blocks, kThreads, smem_bytes, stream>>>(
-      T, dm, k_part, mid_part, n, tiles_per_block, stage_rows, stages,
-      stage_doubles, islots, dm_offset, bar_offset);
+      T, dm, k_part, mid_part, n, batch, t_member, dm_member,
+      tiles_per_block, stage_rows, stages, stage_doubles, islots, dm_offset,
+      bar_offset);
   return (int)cudaGetLastError();
 }
 
@@ -409,19 +469,22 @@ int launch(const double* T, const double* dm, double* k_part, double* mid_part,
 
 // Returns 0 or a cudaError_t: of a launch that was refused, or
 // cudaErrorInvalidValue for a plan that does not fit this kernel.
-// T (n,n,n,n), dm (n,n), out_trail (n,n), out_mid (n,n); scratch k_part
-// (n*n, 16) and mid_part (blocks, islots, n); all contiguous float64 on the
-// device of `stream`. The plan (blocks ... smem_bytes) comes from
-// hopper_jk.jk_plan.
+// For each of the `batch` members m: T + m t_member (n,n,n,n) and dm + m
+// dm_member (n,n) (strides in doubles, each tile 16-byte aligned or not);
+// out_trail, out_mid (batch, n, n); scratch k_part (batch*n*n, 16) and
+// mid_part (blocks, islots, n); all float64 on the device of `stream`. The
+// plan (blocks ... smem_bytes) comes from hopper_jk.jk_plan(n, sms, batch).
 extern "C" int ds_jk_launch(const void* T, const void* dm, void* out_trail,
                             void* out_mid, void* k_part, void* mid_part, int n,
-                            int blocks, int tiles_per_block, int stage_rows,
-                            int stages, int stage_doubles, int dm_shared,
-                            int islots, int dm_offset, int bar_offset,
-                            int smem_bytes, void* stream) {
-  if (!plan_fits(n, blocks, tiles_per_block, stage_rows, stages,
+                            int batch, long long t_member,
+                            long long dm_member, int blocks,
+                            int tiles_per_block, int stage_rows, int stages,
+                            int stage_doubles, int dm_shared, int islots,
+                            int dm_offset, int bar_offset, int smem_bytes,
+                            void* stream) {
+  if (!plan_fits(n, batch, blocks, tiles_per_block, stage_rows, stages,
                  stage_doubles, dm_shared, islots, dm_offset, bar_offset,
-                 smem_bytes))
+                 smem_bytes) || t_member < 0 || dm_member < 0)
     return (int)cudaErrorInvalidValue;
   const double* t = (const double*)T;
   const double* d = (const double*)dm;
@@ -429,14 +492,17 @@ extern "C" int ds_jk_launch(const void* T, const void* dm, void* out_trail,
   double* mp = (double*)mid_part;
   cudaStream_t s = (cudaStream_t)stream;
   const int err =
-      dm_shared ? launch<true>(t, d, kp, mp, n, blocks, tiles_per_block,
-                               stage_rows, stages, stage_doubles, islots,
-                               dm_offset, bar_offset, smem_bytes, s)
-                : launch<false>(t, d, kp, mp, n, blocks, tiles_per_block,
-                                stage_rows, stages, stage_doubles, islots,
-                                dm_offset, bar_offset, smem_bytes, s);
+      dm_shared ? launch<true>(t, d, kp, mp, n, batch, t_member, dm_member,
+                               blocks, tiles_per_block, stage_rows, stages,
+                               stage_doubles, islots, dm_offset, bar_offset,
+                               smem_bytes, s)
+                : launch<false>(t, d, kp, mp, n, batch, t_member, dm_member,
+                                blocks, tiles_per_block, stage_rows, stages,
+                                stage_doubles, islots, dm_offset, bar_offset,
+                                smem_bytes, s);
   if (err != 0) return err;
-  ds_jk_fold<<<(unsigned)n, kFoldThreads, 0, s>>>(
+  // one fold block per row (m, i) of the batch
+  ds_jk_fold<<<(unsigned)(n * batch), kFoldThreads, 0, s>>>(
       kp, mp, (double*)out_trail, (double*)out_mid, n, tiles_per_block,
       islots);
   return (int)cudaGetLastError();

@@ -12,6 +12,15 @@
 //
 // V is the raw (unsymmetrised) matrix; the caller symmetrises it.
 //
+// Batch: B members at once (the counterpart of jax.vmap of the TPU kernel,
+// which adds a grid axis): member m reads its tables and potentials at the
+// member strides the caller passes and writes V[m]. The member is the
+// grid's y axis of both kernels: each member has its own blocks, its own
+// partials part[m][block] and its own fold in the same fixed order, so a
+// member's V has the bits of its unbatched call at the same block count,
+// and one launch serves the whole batch. A batch of one takes the variant
+// without the member offsets.
+//
 // Bound: bytes. The four tables are 4 ng nao * 8 bytes; at ng = 78,144,
 // nao = 114 the function moves 287.7 MB, 0.0859 ms at 3.35 TB/s, against
 // 2 ng nao^2 + 8 ng nao = 2.10 GFLOP (2.56 GFLOP as the padded 128 x 128
@@ -275,14 +284,26 @@ __device__ __forceinline__ void issue_tile(double* stg, uint64_t* bar,
   });
 }
 
-template <int kStages>
+template <int kStages, bool kBatched>
 __global__ void __launch_bounds__(kThreads, 1)
 ds_vxc_gga_kernel(const double* __restrict__ ao,
                   const double* __restrict__ ag,
                   const double* __restrict__ vrho,
                   const double* __restrict__ vgrad,
-                  double* __restrict__ part, int ng, int nao, int panel) {
+                  double* __restrict__ part, int ng, int nao, int panel,
+                  long long ao_member, long long ag_member,
+                  long long pot_member) {
   extern __shared__ __align__(128) double smem[];
+  // this block's member: its tables, potentials and partials (a batch of
+  // one takes the variant without the offsets, the unbatched kernel's code)
+  if (kBatched) {
+    const long long m = blockIdx.y;
+    ao += m * ao_member;
+    ag += m * ag_member;
+    vrho += m * pot_member;
+    vgrad += m * 3LL * pot_member;
+    part += m * (long long)gridDim.x * nao * nao;
+  }
   const int ss = row_stride(panel);
   const int npanel = (nao + panel - 1) / panel;
   const bool one_panel = npanel == 1;
@@ -432,6 +453,9 @@ ds_vxc_fold(const double* __restrict__ part, double* __restrict__ v, int nn,
             int n_part) {
   constexpr int kBatch = 8;   // loads in flight before they are added
   __shared__ double sums[kFoldGroups][32];
+  // member blockIdx.y: its n_part partials and its V
+  part += (size_t)blockIdx.y * n_part * nn;
+  v += (size_t)blockIdx.y * nn;
   const int lane = threadIdx.x & 31, grp = threadIdx.x >> 5;
   const int e = blockIdx.x * 32 + lane;
   const int per = (n_part + kFoldGroups - 1) / kFoldGroups;
@@ -464,7 +488,7 @@ constexpr int kMaxDevices = 64;
 // the current device and every later launch there; so it is asked once per
 // device and stage count, for the largest plan seen so far (under a lock:
 // ctypes calls in without the GIL).
-template <int kStages>
+template <int kStages, bool kBatched>
 cudaError_t opt_in(int smem_bytes) {
   static std::mutex mu;
   static int granted[kMaxDevices] = {};
@@ -474,26 +498,30 @@ cudaError_t opt_in(int smem_bytes) {
   if (e != cudaSuccess) return e;
   if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (granted[dev] >= smem_bytes) return cudaSuccess;
-  e = cudaFuncSetAttribute(ds_vxc_gga_kernel<kStages>,
+  e = cudaFuncSetAttribute(ds_vxc_gga_kernel<kStages, kBatched>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                            smem_bytes);
   if (e == cudaSuccess) granted[dev] = smem_bytes;
   return e;
 }
 
-template <int kStages>
+template <int kStages, bool kBatched>
 int launch(const double* ao, const double* ag, const double* vrho,
            const double* vgrad, double* v, double* part, int ng, int nao,
-           int panel, int smem_bytes, int blocks, cudaStream_t stream) {
-  cudaError_t e = opt_in<kStages>(smem_bytes);
+           int panel, int smem_bytes, int blocks, int batch,
+           long long ao_member, long long ag_member, long long pot_member,
+           cudaStream_t stream) {
+  cudaError_t e = opt_in<kStages, kBatched>(smem_bytes);
   if (e != cudaSuccess) return (int)e;
-  ds_vxc_gga_kernel<kStages><<<blocks, kThreads, smem_bytes, stream>>>(
-      ao, ag, vrho, vgrad, part, ng, nao, panel);
+  ds_vxc_gga_kernel<kStages, kBatched>
+      <<<dim3((unsigned)blocks, (unsigned)batch), kThreads, smem_bytes,
+         stream>>>(ao, ag, vrho, vgrad, part, ng, nao, panel, ao_member,
+                   ag_member, pot_member);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   const int nn = nao * nao;
-  ds_vxc_fold<<<(nn + 31) / 32, kFoldThreads, 0, stream>>>(part, v, nn,
-                                                           blocks);
+  ds_vxc_fold<<<dim3((unsigned)((nn + 31) / 32), (unsigned)batch),
+                kFoldThreads, 0, stream>>>(part, v, nn, blocks);
   return (int)cudaGetLastError();
 }
 
@@ -501,19 +529,25 @@ int launch(const double* ao, const double* ag, const double* vrho,
 
 // Returns 0 or a cudaError_t: of the launch that was refused, or
 // cudaErrorInvalidValue for a plan that does not match this kernel.
-// ao (ng, nao), ag (3, ng, nao), vrho (ng), vgrad (3, ng), v (nao, nao),
-// part (blocks, nao, nao) scratch; all contiguous float64 on the device of
-// `stream`. The plan (tile_points, panel, stages, smem_bytes, blocks) comes
-// from hopper_xc.vxc_plan: the panel width of panel_width(nao), three
-// stages where they fit and else two, at most one block per tile.
+// For each of the `batch` members m: ao + m ao_member (ng, nao), ag + m
+// ag_member (3, ng, nao), vrho + m pot_member (ng), vgrad + 3 m pot_member
+// (3, ng) (strides in doubles; each member contiguous), v (batch, nao,
+// nao), part (batch, blocks, nao, nao) scratch; all float64 on the device
+// of `stream`. The plan (tile_points, panel, stages, smem_bytes, blocks per
+// member) comes from hopper_xc.vxc_plan(ng, nao, sms, batch): the panel
+// width of panel_width(nao), three stages where they fit and else two, at
+// most one block per tile.
 extern "C" int ds_vxc_gga_launch(const void* ao, const void* ag,
                                  const void* vrho, const void* vgrad, void* v,
-                                 void* part, int ng, int nao, int tile_points,
+                                 void* part, int ng, int nao, int batch,
+                                 long long ao_member, long long ag_member,
+                                 long long pot_member, int tile_points,
                                  int panel, int stages, int smem_bytes,
                                  int blocks, void* stream) {
   if (ng <= 0 || nao <= 0 || tile_points != kBK ||
       panel != panel_width(nao) || blocks <= 0 ||
-      blocks > (ng + kBK - 1) / kBK)
+      blocks > (ng + kBK - 1) / kBK || batch <= 0 || batch > 65535 ||
+      ao_member < 0 || ag_member < 0 || pot_member < 0)
     return (int)cudaErrorInvalidValue;
   const int npanel = (nao + panel - 1) / panel;
   const int fit = smem_bytes_of(nao, panel, npanel, 3) <= kSmemLimit ? 3 : 2;
@@ -526,9 +560,19 @@ extern "C" int ds_vxc_gga_launch(const void* ao, const void* ag,
   const double* r = (const double*)vrho;
   const double* d = (const double*)vgrad;
   cudaStream_t st = (cudaStream_t)stream;
+  double* vo = (double*)v;
+  double* pa = (double*)part;
+  if (batch == 1)
+    return stages == 3
+               ? launch<3, false>(a, g, r, d, vo, pa, ng, nao, panel,
+                                  smem_bytes, blocks, 1, 0, 0, 0, st)
+               : launch<2, false>(a, g, r, d, vo, pa, ng, nao, panel,
+                                  smem_bytes, blocks, 1, 0, 0, 0, st);
   return stages == 3
-             ? launch<3>(a, g, r, d, (double*)v, (double*)part, ng, nao,
-                         panel, smem_bytes, blocks, st)
-             : launch<2>(a, g, r, d, (double*)v, (double*)part, ng, nao,
-                         panel, smem_bytes, blocks, st);
+             ? launch<3, true>(a, g, r, d, vo, pa, ng, nao, panel,
+                               smem_bytes, blocks, batch, ao_member,
+                               ag_member, pot_member, st)
+             : launch<2, true>(a, g, r, d, vo, pa, ng, nao, panel,
+                               smem_bytes, blocks, batch, ao_member,
+                               ag_member, pot_member, st);
 }

@@ -2,7 +2,8 @@
 dqc_tpu/grid/angular.py): the Lebedev-Laikov tables up to degree 131, and
 a generated product rule (Gauss-Legendre in cos(theta) x equispaced phi,
 about (L+1)^2/2 points) beyond them. The JAX package's
-DQC_TPU_ANGULAR=product switch is not carried over.
+DQC_TPU_ANGULAR=product switch is not carried over, so the rule family is
+always the Lebedev one ("leb" in a cache signature).
 """
 from __future__ import annotations
 
@@ -38,3 +39,14 @@ def angular_rule(degree: int):
     if degree <= 131:
         return lebedev_by_degree(int(degree))
     return product_angular_grid(int(degree))
+
+
+def angular_rule_tag() -> str:
+    """The angular rule family, a component of Mol.cache_signature: "leb"
+    (the JAX package's default; its product-rule switch is not ported)."""
+    return "leb"
+
+
+def angular_grid_by_precision(prec: int):
+    """Grid exact to spherical-harmonic degree >= prec."""
+    return angular_rule(int(prec))

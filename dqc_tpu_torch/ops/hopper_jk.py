@@ -8,6 +8,12 @@ ds_jk_kplanes). One pass over a dense 4-index float64 tensor T forms
 
 For T = eri_k (eri_k[i,j,k,l] = (ik|jl)): (out_trail, out_mid) = (K, J).
 
+Batch axis: T (B,n,n,n,n) with dm (B,n,n) gives (B,n,n) outputs, member by
+member, in ONE launch for the whole batch (what jax.vmap of the TPU kernel
+computes; parallel/batch.py's batched SCF makes one such launch per Fock
+build). The kernel offsets its own pointers by the member strides; an
+unbatched call is the batch of one and gives the bits it always gave.
+
 The kernel is csrc/ds_jk.cu (CUDA C++ for sm_90a; its header says what it
 is bounded by — bytes: T is read once — and how it streams T). There are
 no hi/lo f32 planes here: the card has f64 arithmetic and the f64 tensor is
@@ -67,7 +73,8 @@ H100_SMS = 132
 PLAN_KEYS = ("blocks", "tiles_per_block", "stage_rows", "stages",
              "stage_doubles", "dm_shared", "islots", "dm_offset",
              "bar_offset", "smem_bytes")
-_SYMBOLS = {"ds_jk_launch": _nvcc.ptr(6) + _nvcc.ints(1 + len(PLAN_KEYS))
+_SYMBOLS = {"ds_jk_launch": _nvcc.ptr(6) + _nvcc.ints(2)
+            + [ctypes.c_longlong] * 2 + _nvcc.ints(len(PLAN_KEYS))
             + [ctypes.c_void_p]}
 
 
@@ -85,12 +92,13 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def jk_plan(n: int, sms: int = H100_SMS) -> dict:
-    """Launch plan and shared-memory layout of the ds_jk kernel for T
-    (n,n,n,n) on a card with `sms` multiprocessors.
+def jk_plan(n: int, sms: int = H100_SMS, batch: int = 1) -> dict:
+    """Launch plan and shared-memory layout of the ds_jk kernel for `batch`
+    tensors T (n,n,n,n) on a card with `sms` multiprocessors.
 
     One block per multiprocessor, each owning `tiles_per_block` consecutive
-    tiles T[i,a,:,:] (the last block fewer). A ring stage carries
+    tiles T[m,i,a,:,:] of the batch's B n^2 (the last block fewer; a range
+    may cross from one member to the next). A ring stage carries
     `stage_rows` rows of one tile (a multiple of JK_WARPS, about
     JK_STAGE_BYTES) plus one double on each side for the 16-byte aligned
     span of the bulk copy, rounded to 128 bytes. dm stays in shared memory
@@ -102,10 +110,10 @@ def jk_plan(n: int, sms: int = H100_SMS) -> dict:
     `dm_offset` (if shared), two mbarriers per stage at `bar_offset`;
     `smem_bytes` in all. The kernel checks this plan and lays out nothing
     itself."""
-    if not 1 <= n <= JK_MAX_N or sms < 1:
-        raise ValueError(f"jk_plan: n = {n} must be in [1, {JK_MAX_N}] and "
-                         f"sms = {sms} >= 1")
-    tiles = n * n
+    if not 1 <= n <= JK_MAX_N or sms < 1 or batch < 1:
+        raise ValueError(f"jk_plan: n = {n} must be in [1, {JK_MAX_N}], "
+                         f"sms = {sms} and batch = {batch} >= 1")
+    tiles = batch * n * n
     tiles_per_block = -(-tiles // sms)
     blocks = -(-tiles // tiles_per_block)
     stage_rows = min(_round_up(n, JK_WARPS), JK_WARPS * max(
@@ -130,19 +138,21 @@ def jk_plan(n: int, sms: int = H100_SMS) -> dict:
 
 
 @functools.lru_cache(maxsize=64)
-def _launch_plan(n: int, device_index: int) -> dict:
-    """jk_plan for the card `device_index`, kept per n: the SCF calls the
-    kernel at one n every iteration."""
+def _launch_plan(n: int, batch: int, device_index: int) -> dict:
+    """jk_plan for the card `device_index`, kept per (n, batch): the SCF
+    calls the kernel at one shape every iteration."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    return jk_plan(n, sms)
+    return jk_plan(n, sms, batch)
 
 
 def _check(T, dm):
-    if T.ndim != 4 or len(set(T.shape)) != 1:
-        raise ValueError(f"T must be (n,n,n,n), got {tuple(T.shape)}")
-    n = T.shape[0]
-    if tuple(dm.shape) != (n, n):
-        raise ValueError(f"dm must be ({n},{n}), got {tuple(dm.shape)}")
+    if T.ndim not in (4, 5) or len(set(T.shape[-4:])) != 1:
+        raise ValueError(f"T must be (n,n,n,n) or (B,n,n,n,n), got "
+                         f"{tuple(T.shape)}")
+    n = T.shape[-1]
+    want = tuple(T.shape[:-4]) + (n, n)
+    if tuple(dm.shape) != want:
+        raise ValueError(f"dm must be {want}, got {tuple(dm.shape)}")
     if T.dtype != torch.float64 or dm.dtype != torch.float64:
         raise TypeError("ds_jk takes float64 tensors, got "
                         f"{T.dtype} and {dm.dtype}")
@@ -152,8 +162,12 @@ def _check(T, dm):
 
 def ds_jk_reference(T, dm):
     """Plain PyTorch version of the kernel: the same two contractions as
-    two float64 einsums. Used on CPU tensors and as the oracle the kernel is
-    held against on the card."""
+    two float64 einsums, member by member for a batch (so each member has
+    the bits of its unbatched call). Used on CPU tensors and as the oracle
+    the kernel is held against on the card."""
+    if T.ndim == 5:
+        outs = [ds_jk_reference(t, d) for t, d in zip(T, dm)]
+        return tuple(torch.stack(o) for o in zip(*outs))
     out_trail = torch.einsum("ijkl,kl->ij", T, dm)
     out_mid = torch.einsum("iabl,al->ib", T, dm)
     return out_trail, out_mid
@@ -177,27 +191,33 @@ def _assert_pair_symmetric(T):
     ds_jk relies on. For seeded probes P, Q (not symmetric):
     <Q, trail(P)> = <P, trail(Q)> tests T[i,j,k,l] = T[k,l,i,j] and
     <Q, mid(P)> = <P, mid(Q)> tests T[i,j,k,l] = T[j,i,l,k]. Two launches,
-    once per T (marked on the tensor with its version)."""
+    once per T (marked on the tensor with its version); a batch is checked
+    member by member, the same probes for every member."""
     if getattr(T, "_pair_sym_version", None) == T._version:
         return
-    n = T.shape[0]
+    n = T.shape[-1]
     g = torch.Generator().manual_seed(11)
     P, Q = (torch.randn((n, n), generator=g, dtype=T.dtype).to(T.device)
-            for _ in range(2))
+            .expand(T.shape[:-4] + (n, n)).contiguous() for _ in range(2))
     with torch.no_grad():
         tp, mp = _forward(T, P)
         tq, mq = _forward(T, Q)
         for name, op, oq in (("T[i,j,k,l] = T[k,l,i,j]", tp, tq),
                              ("T[i,j,k,l] = T[j,i,l,k]", mp, mq)):
-            # relative to the Cauchy-Schwarz bound of both sides
-            scale = float(Q.norm() * op.norm() + P.norm() * oq.norm())
-            diff = float(((Q * op).sum() - (P * oq).sum()).abs())
-            if diff > PAIR_SYM_REL * max(scale, 1e-300):
+            # relative to the Cauchy-Schwarz bound of both sides, per member
+            scale = (_norm2(Q) * _norm2(op) + _norm2(P) * _norm2(oq))
+            diff = ((Q * op).sum((-1, -2)) - (P * oq).sum((-1, -2))).abs()
+            if bool((diff > PAIR_SYM_REL * scale.clamp_min(1e-300)).any()):
                 raise ValueError(
                     f"ds_jk backward: T lacks the pair symmetry {name} "
                     "that makes the dm cotangent a ds_jk of the "
                     "cotangents")
     T._pair_sym_version = T._version
+
+
+def _norm2(x):
+    """Frobenius norm over the last two axes."""
+    return torch.linalg.matrix_norm(x)
 
 
 class _DsJk(torch.autograd.Function):
@@ -216,13 +236,17 @@ class _DsJk(torch.autograd.Function):
             dmbar = (_DsJk.apply(T, trail_bar.contiguous())[0]
                      + _DsJk.apply(T, mid_bar.contiguous())[1])
         if ctx.needs_input_grad[0]:
-            tbar = (trail_bar[:, :, None, None] * dm[None, None, :, :]
-                    + mid_bar[:, None, :, None] * dm[None, :, None, :])
+            tbar = (trail_bar[..., :, :, None, None]
+                    * dm[..., None, None, :, :]
+                    + mid_bar[..., :, None, :, None]
+                    * dm[..., None, :, None, :])
         return tbar, dmbar
 
 
 def ds_jk(T, dm):
-    """(out_trail, out_mid) of T (n,n,n,n) and dm (n,n), float64.
+    """(out_trail, out_mid) of T (n,n,n,n) and dm (n,n), float64, or of a
+    batch T (B,n,n,n,n) and dm (B,n,n) member by member ((B,n,n) each; one
+    launch for the batch).
 
     CPU tensors: the plain version. CUDA tensors: the kernel; T and dm must
     be contiguous. Differentiable on both (see the module docstring: the dm
@@ -237,12 +261,14 @@ def _launch(T, dm):
     if not T.is_contiguous() or not dm.is_contiguous():
         raise ValueError("ds_jk needs contiguous T and dm on the card")
     lib = _load()
-    n = T.shape[0]
-    plan = _launch_plan(n, T.device.index)
+    n = T.shape[-1]
+    lead = tuple(T.shape[:-4])
+    batch = lead[0] if lead else 1
+    plan = _launch_plan(n, batch, T.device.index)
     with torch.cuda.device(T.device):
-        out_trail = torch.empty((n, n), dtype=T.dtype, device=T.device)
-        out_mid = torch.empty((n, n), dtype=T.dtype, device=T.device)
-        k_part = torch.empty((n * n, JK_WARPS), dtype=T.dtype,
+        out_trail = torch.empty(lead + (n, n), dtype=T.dtype, device=T.device)
+        out_mid = torch.empty(lead + (n, n), dtype=T.dtype, device=T.device)
+        k_part = torch.empty((batch * n * n, JK_WARPS), dtype=T.dtype,
                              device=T.device)
         mid_part = torch.empty((plan["blocks"], plan["islots"], n),
                                dtype=T.dtype, device=T.device)
@@ -250,10 +276,11 @@ def _launch(T, dm):
         err = lib.ds_jk_launch(T.data_ptr(), dm.data_ptr(),
                                out_trail.data_ptr(), out_mid.data_ptr(),
                                k_part.data_ptr(), mid_part.data_ptr(), n,
+                               batch, n ** 4, n * n,
                                *(plan[k] for k in PLAN_KEYS), stream)
     if err != 0:
         raise RuntimeError(f"ds_jk kernel launch failed: cudaError {err} "
-                           f"(n={n}, plan={plan})")
+                           f"(n={n}, batch={batch}, plan={plan})")
     ds_jk.launches += 1
     tag = getattr(T, "jk_tag", "eri_k")
     ds_jk.launches_by_tag[tag] = ds_jk.launches_by_tag.get(tag, 0) + 1

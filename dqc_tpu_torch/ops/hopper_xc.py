@@ -11,6 +11,15 @@ Replaces the TPU kernels dqc_tpu/ops/pallas_xc.py::ds_dens_gga and
       WT[i,g] = vrho[g] phi_i(g) + 2 sum_d vgrad[d,g] dphi_d,i(g)
       (quadrature weights folded into vrho, vgrad; the caller symmetrises)
 
+Batch axis: tables (B, ng, nao), (B, 3, ng, nao) with dm (B, nao, nao), or
+with vrho (B, ng), vgrad (B, 3, ng), give the members' results stacked, in
+ONE launch of each kernel for the whole batch (what jax.vmap of the TPU
+kernels computes): the member is a grid axis, each member keeps its own
+blocks, panels and partials, and K3's fold stays per member and in order.
+The launch plans spread the batch over the card's multiprocessors
+(`sms // B` blocks per member). An unbatched call is the batch of one and
+gives the bits it always gave.
+
 The kernels are csrc/ds_dens_gga.cu and csrc/ds_vxc_gga.cu (CUDA C++ for
 sm_90a; their headers say what bounds them and how they are laid out).
 None of the TPU machinery carries over: no hi/lo f32 planes, no (8,128)
@@ -50,10 +59,13 @@ import torch
 
 from . import _nvcc
 
+# (pointers, ng, nao, batch, three member strides, the plan, the stream)
 _DENS_SYMBOLS = {"ds_dens_gga_launch":
-                 _nvcc.ptr(5) + _nvcc.ints(7) + [ctypes.c_void_p]}
+                 _nvcc.ptr(5) + _nvcc.ints(3) + [ctypes.c_longlong] * 3
+                 + _nvcc.ints(5) + [ctypes.c_void_p]}
 _VXC_SYMBOLS = {"ds_vxc_gga_launch":
-                _nvcc.ptr(6) + _nvcc.ints(7) + [ctypes.c_void_p]}
+                _nvcc.ptr(6) + _nvcc.ints(3) + [ctypes.c_longlong] * 3
+                + _nvcc.ints(5) + [ctypes.c_void_p]}
 SOURCES = {"ds_dens_gga": _nvcc.source_path("ds_dens_gga"),
            "ds_vxc_gga": _nvcc.source_path("ds_vxc_gga")}
 
@@ -86,13 +98,16 @@ def build(force: bool = False) -> dict:
 
 
 def _check_tables(ao, ao_grad, name):
-    if ao.ndim != 2:
-        raise ValueError(f"{name}: ao must be (ng, nao), got {tuple(ao.shape)}")
-    ng, nao = ao.shape
-    if tuple(ao_grad.shape) != (3, ng, nao):
-        raise ValueError(f"{name}: ao_grad must be (3, {ng}, {nao}), got "
-                         f"{tuple(ao_grad.shape)}")
-    return ng, nao
+    """(batch shape, ng, nao) of tables ao ([B,] ng, nao) and ao_grad ([B,]
+    3, ng, nao)."""
+    if ao.ndim not in (2, 3):
+        raise ValueError(f"{name}: ao must be (ng, nao) or (B, ng, nao), got "
+                         f"{tuple(ao.shape)}")
+    lead, (ng, nao) = tuple(ao.shape[:-2]), tuple(ao.shape[-2:])
+    if tuple(ao_grad.shape) != lead + (3, ng, nao):
+        raise ValueError(f"{name}: ao_grad must be {lead + (3, ng, nao)}, "
+                         f"got {tuple(ao_grad.shape)}")
+    return lead, ng, nao
 
 
 def _check_common(name, tensors):
@@ -114,8 +129,12 @@ def _check_common(name, tensors):
 def ds_dens_reference(ao, ao_grad, dm):
     """Plain PyTorch version of ds_dens_gga in the kernel's algebra: one
     product c = ao @ dm.T (c[g,i] = sum_j phi_j(g) dm[i,j]), then the row
-    dots of c with phi and with each gradient table; right for any dm.
+    dots of c with phi and with each gradient table; right for any dm. A
+    batch member by member (each with the bits of its unbatched call).
     Used on CPU tensors and as the oracle of the kernel on the card."""
+    if ao.ndim == 3:
+        outs = [ds_dens_reference(*m) for m in zip(ao, ao_grad, dm)]
+        return tuple(torch.stack(o) for o in zip(*outs))
     c = ao @ dm.T
     rho = (c * ao).sum(-1)
     gdot = 2.0 * (ao_grad * c).sum(-1)
@@ -133,16 +152,20 @@ def dens_stage_doubles(panel: int, nao: int) -> int:
     return D_TILE * (panel + 4 + e_tables * e_stride)
 
 
-def dens_plan(ng: int, nao: int, sms: int = H100_SMS) -> dict:
-    """Launch plan of the ds_dens_gga kernel for ng points and nao AOs.
+def dens_plan(ng: int, nao: int, sms: int = H100_SMS,
+              batch: int = 1) -> dict:
+    """Launch plan of the ds_dens_gga kernel for `batch` members of ng
+    points and nao AOs.
 
     dm is cut into panels of `panel` rows (a multiple of 8, at most 128) and
     column blocks of the same width; each warp keeps its 8 rows of a panel
     in registers. Three ring stages (dens_stage_doubles) where they fit,
-    else two. One block per multiprocessor, no more blocks than tiles (the
-    layout the kernel checks)."""
-    if ng <= 0 or nao <= 0:
-        raise ValueError(f"dens_plan: ng = {ng} and nao = {nao} must be > 0")
+    else two. One block per multiprocessor: `blocks` per member (sms //
+    batch, at least one), no more than the member's tiles; the grid is
+    blocks x batch (the layout the kernel checks)."""
+    if ng <= 0 or nao <= 0 or batch <= 0:
+        raise ValueError(f"dens_plan: ng = {ng}, nao = {nao} and batch = "
+                         f"{batch} must be > 0")
     panel = min(D_MAX_PANEL, -(-nao // 8) * 8)
     for stages in (3, 2):
         smem = 8 * (stages * dens_stage_doubles(panel, nao) + D_RED_DOUBLES)
@@ -153,38 +176,45 @@ def dens_plan(ng: int, nao: int, sms: int = H100_SMS) -> dict:
     tiles = -(-ng // D_TILE)
     return {"tile_points": D_TILE, "panel": panel,
             "panels": -(-nao // panel), "stages": stages,
-            "smem_bytes": smem, "blocks": max(1, min(tiles, sms)),
-            "tiles": tiles}
+            "smem_bytes": smem, "blocks": max(1, min(tiles, sms // batch)),
+            "tiles": tiles, "batch": batch}
 
 
 @functools.lru_cache(maxsize=64)
-def _dens_launch_plan(ng: int, nao: int, device_index: int) -> tuple:
+def _dens_launch_plan(ng: int, nao: int, batch: int,
+                      device_index: int) -> tuple:
     """(tile_points, panel, stages, smem_bytes, blocks) of dens_plan for
     the card `device_index`, kept per shape: the SCF calls the kernel at
     one shape every iteration."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    p = dens_plan(ng, nao, sms)
+    p = dens_plan(ng, nao, sms, batch)
     return (p["tile_points"], p["panel"], p["stages"], p["smem_bytes"],
             p["blocks"])
 
 
 def ds_vxc_reference(ao, ao_grad, vrho, vgrad):
     """Plain PyTorch version of ds_vxc_gga: the GGA terms of
-    xc/integrate._vxc_assemble (raw, unsymmetrised)."""
+    xc/integrate._vxc_assemble (raw, unsymmetrised); a batch member by
+    member."""
+    if ao.ndim == 3:
+        return torch.stack([ds_vxc_reference(*m)
+                            for m in zip(ao, ao_grad, vrho, vgrad)])
     v = torch.einsum("gi,g,gj->ij", ao, vrho, ao)
     return v + 2.0 * torch.einsum("dgi,dg,gj->ij", ao_grad, vgrad, ao)
 
 
 def ds_dens_gga(ao, ao_grad, dm):
     """(rho (ng,), gdot (3, ng)) from ao (ng, nao), ao_grad (3, ng, nao) and
-    dm (nao, nao), float64 (dm need not be symmetric).
+    dm (nao, nao), float64 (dm need not be symmetric); or of a batch, ao
+    (B, ng, nao), ao_grad (B, 3, ng, nao), dm (B, nao, nao) -> rho (B, ng),
+    gdot (B, 3, ng), one launch.
 
     CPU tensors: the plain version. CUDA tensors: the kernel; every tensor
     must be contiguous. Differentiable on both. Raises on anything the
     kernel does not take and on a failed build or launch."""
-    ng, nao = _check_tables(ao, ao_grad, "ds_dens_gga")
-    if tuple(dm.shape) != (nao, nao):
-        raise ValueError(f"ds_dens_gga: dm must be ({nao}, {nao}), got "
+    lead, ng, nao = _check_tables(ao, ao_grad, "ds_dens_gga")
+    if tuple(dm.shape) != lead + (nao, nao):
+        raise ValueError(f"ds_dens_gga: dm must be {lead + (nao, nao)}, got "
                          f"{tuple(dm.shape)}")
     return _DsDens.apply(ao, ao_grad, dm)
 
@@ -192,19 +222,22 @@ def ds_dens_gga(ao, ao_grad, dm):
 def _dens_forward(ao, ao_grad, dm):
     if not _check_common("ds_dens_gga", (ao, ao_grad, dm)):
         return ds_dens_reference(ao, ao_grad, dm)
-    ng, nao = ao.shape
+    lead, (ng, nao) = tuple(ao.shape[:-2]), tuple(ao.shape[-2:])
+    batch = lead[0] if lead else 1
     lib = _nvcc.load("ds_dens_gga", _DENS_SYMBOLS)
-    plan = _dens_launch_plan(ng, nao, ao.device.index)
+    plan = _dens_launch_plan(ng, nao, batch, ao.device.index)
     with torch.cuda.device(ao.device):
-        rho = torch.empty((ng,), dtype=ao.dtype, device=ao.device)
-        gdot = torch.empty((3, ng), dtype=ao.dtype, device=ao.device)
+        rho = torch.empty(lead + (ng,), dtype=ao.dtype, device=ao.device)
+        gdot = torch.empty(lead + (3, ng), dtype=ao.dtype, device=ao.device)
         stream = torch.cuda.current_stream(ao.device).cuda_stream
         err = lib.ds_dens_gga_launch(
             ao.data_ptr(), ao_grad.data_ptr(), dm.data_ptr(), rho.data_ptr(),
-            gdot.data_ptr(), ng, nao, *plan, stream)
+            gdot.data_ptr(), ng, nao, batch, ng * nao, 3 * ng * nao,
+            nao * nao, *plan, stream)
     if err != 0:
         raise RuntimeError(f"ds_dens_gga kernel launch failed: cudaError "
-                           f"{err} (ng={ng}, nao={nao}, plan={plan})")
+                           f"{err} (ng={ng}, nao={nao}, batch={batch}, "
+                           f"plan={plan})")
     ds_dens_gga.launches += 1
     return rho, gdot
 
@@ -228,8 +261,10 @@ def vxc_smem_bytes(nao: int, panel: int, panels: int, stages: int) -> int:
     return 8 * (2 * V_POINTS * (panel + 4) + stages * stage) + 8 * stages
 
 
-def vxc_plan(ng: int, nao: int, sms: int = H100_SMS) -> dict:
-    """Launch plan of the ds_vxc_gga kernel for ng points and nao AOs.
+def vxc_plan(ng: int, nao: int, sms: int = H100_SMS,
+             batch: int = 1) -> dict:
+    """Launch plan of the ds_vxc_gga kernel for `batch` members of ng
+    points and nao AOs.
 
     V is cut into `panels` x `panels` sub-blocks of `panel` rows and
     columns (a multiple of 16, at most V_MAX_PANEL; as few panels as that
@@ -253,30 +288,35 @@ def vxc_plan(ng: int, nao: int, sms: int = H100_SMS) -> dict:
     tiles = -(-ng // V_POINTS)
     return {"tile_points": V_POINTS, "panel": panel, "panels": panels,
             "sub_blocks": panels * panels, "stages": stages,
-            "smem_bytes": smem, "blocks": min(tiles, sms), "tiles": tiles}
+            "smem_bytes": smem, "blocks": max(1, min(tiles, sms // batch)),
+            "tiles": tiles, "batch": batch}
 
 
 @functools.lru_cache(maxsize=64)
-def _vxc_launch_plan(ng: int, nao: int, device_index: int) -> tuple:
+def _vxc_launch_plan(ng: int, nao: int, batch: int,
+                     device_index: int) -> tuple:
     """(tile_points, panel, stages, smem_bytes, blocks) of vxc_plan for the
     card `device_index`, kept per shape like _dens_launch_plan."""
     sms = torch.cuda.get_device_properties(device_index).multi_processor_count
-    p = vxc_plan(ng, nao, sms)
+    p = vxc_plan(ng, nao, sms, batch)
     return (p["tile_points"], p["panel"], p["stages"], p["smem_bytes"],
             p["blocks"])
 
 
 def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
     """Raw V (nao, nao) from ao (ng, nao), ao_grad (3, ng, nao), vrho (ng,)
-    and vgrad (3, ng), float64.
+    and vgrad (3, ng), float64; or of a batch, tables (B, ng, nao), (B, 3,
+    ng, nao) and potentials (B, ng), (B, 3, ng) -> V (B, nao, nao), one
+    launch.
 
     CPU tensors: the plain version. CUDA tensors: the kernel; every tensor
     must be contiguous. Differentiable on both. Raises on anything the
     kernel does not take and on a failed build or launch."""
-    ng, nao = _check_tables(ao, ao_grad, "ds_vxc_gga")
-    if tuple(vrho.shape) != (ng,) or tuple(vgrad.shape) != (3, ng):
-        raise ValueError(f"ds_vxc_gga: vrho must be ({ng},) and vgrad "
-                         f"(3, {ng}), got {tuple(vrho.shape)} and "
+    lead, ng, nao = _check_tables(ao, ao_grad, "ds_vxc_gga")
+    if (tuple(vrho.shape) != lead + (ng,)
+            or tuple(vgrad.shape) != lead + (3, ng)):
+        raise ValueError(f"ds_vxc_gga: vrho must be {lead + (ng,)} and vgrad "
+                         f"{lead + (3, ng)}, got {tuple(vrho.shape)} and "
                          f"{tuple(vgrad.shape)}")
     return _DsVxc.apply(ao, ao_grad, vrho, vgrad)
 
@@ -284,22 +324,26 @@ def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
 def _vxc_forward(ao, ao_grad, vrho, vgrad):
     if not _check_common("ds_vxc_gga", (ao, ao_grad, vrho, vgrad)):
         return ds_vxc_reference(ao, ao_grad, vrho, vgrad)
-    ng, nao = ao.shape
+    lead, (ng, nao) = tuple(ao.shape[:-2]), tuple(ao.shape[-2:])
+    batch = lead[0] if lead else 1
     lib = _nvcc.load("ds_vxc_gga", _VXC_SYMBOLS)
-    plan = _vxc_launch_plan(ng, nao, ao.device.index)
+    plan = _vxc_launch_plan(ng, nao, batch, ao.device.index)
     with torch.cuda.device(ao.device):
-        v = torch.empty((nao, nao), dtype=ao.dtype, device=ao.device)
-        # one partial V per block, added in a fixed order by the fold
-        part = torch.empty((plan[-1], nao, nao), dtype=ao.dtype,
+        v = torch.empty(lead + (nao, nao), dtype=ao.dtype, device=ao.device)
+        # one partial V per block and member, added in a fixed order by the
+        # fold
+        part = torch.empty((batch, plan[-1], nao, nao), dtype=ao.dtype,
                            device=ao.device)
         stream = torch.cuda.current_stream(ao.device).cuda_stream
         err = lib.ds_vxc_gga_launch(ao.data_ptr(), ao_grad.data_ptr(),
                                     vrho.data_ptr(), vgrad.data_ptr(),
                                     v.data_ptr(), part.data_ptr(), ng, nao,
+                                    batch, ng * nao, 3 * ng * nao, ng,
                                     *plan, stream)
     if err != 0:
         raise RuntimeError(f"ds_vxc_gga kernel launch failed: cudaError "
-                           f"{err} (ng={ng}, nao={nao}, plan={plan})")
+                           f"{err} (ng={ng}, nao={nao}, batch={batch}, "
+                           f"plan={plan})")
     ds_vxc_gga.launches += 1
     return v
 
@@ -324,13 +368,13 @@ class _DsDens(torch.autograd.Function):
             dm_bar = _DsVxc.apply(ao, ag, rho_bar.contiguous(),
                                   gdot_bar.contiguous())
         if need_ao or need_ag:
-            c = ao @ dm.T                      # c[g,p] = sum_j dm[p,j] phi_j
+            c = ao @ dm.mT                     # c[g,p] = sum_j dm[p,j] phi_j
         if need_ao:
             # rho = <c, phi>: both factors of phi; gdot_d = 2 <c, dphi_d>
-            ao_bar = rho_bar[:, None] * (c + ao @ dm) + 2.0 * (
-                (gdot_bar[:, :, None] * ag).sum(0) @ dm)
+            ao_bar = rho_bar[..., :, None] * (c + ao @ dm) + 2.0 * (
+                (gdot_bar[..., :, :, None] * ag).sum(-3) @ dm)
         if need_ag:
-            ag_bar = 2.0 * gdot_bar[:, :, None] * c[None]
+            ag_bar = 2.0 * gdot_bar[..., :, :, None] * c[..., None, :, :]
         return ao_bar, ag_bar, dm_bar
 
 
@@ -351,11 +395,11 @@ class _DsVxc(torch.autograd.Function):
         if need_vr or need_vg:
             vr_bar, vg_bar = _DsDens.apply(ao, ag, v_bar)
         if need_ao or need_ag:
-            c = ao @ v_bar.T                   # c[g,p] = sum_j Vbar[p,j] phi_j
+            c = ao @ v_bar.mT                  # c[g,p] = sum_j Vbar[p,j] phi_j
         if need_ao:
             # V = WT^T phi: phi enters WT (vrho phi_i) and the right factor
-            ao_bar = vrho[:, None] * (c + ao @ v_bar) + 2.0 * (
-                (vgrad[:, :, None] * ag).sum(0) @ v_bar)
+            ao_bar = vrho[..., :, None] * (c + ao @ v_bar) + 2.0 * (
+                (vgrad[..., :, :, None] * ag).sum(-3) @ v_bar)
         if need_ag:
-            ag_bar = 2.0 * vgrad[:, :, None] * c[None]
+            ag_bar = 2.0 * vgrad[..., :, :, None] * c[..., None, :, :]
         return ao_bar, ag_bar, vr_bar, vg_bar

@@ -168,22 +168,36 @@ def build_df_theta(meta, params, meta_aux, params_aux, omega=None):
 
 
 def df_j(df, dm_tot):
-    """Coulomb matrix of the fitted density: J = sum_Q B_Q <B_Q, dm>."""
+    """Coulomb matrix of the fitted density: J = sum_Q B_Q <B_Q, dm>. A
+    batch (B (nb, nao, naux, nao), dm (nb, nao, nao)) member by member."""
     b = df["B"]
+    if b.ndim == 4:
+        rho = torch.einsum("...iqk,...ik->...q", b, dm_tot)
+        return torch.einsum("...q,...iqk->...ik", rho, b)
     rho = torch.bmm(b, dm_tot[:, :, None]).sum(dim=0)[:, 0]   # (naux,)
     return torch.matmul(rho, b)
 
 
-def df_k(df, dm):
+def df_k(df, dm, polarized=None):
     """RI-K exchange: K = sum_Q B_Q dm B_Q for dm (nao, nao), or per spin
-    for dm (2, nao, nao). One intermediate U[k,Q,j] = (dm B_Q)[k,j] of B's
-    size. A periodic fit that carries 'madelung' (scf/pbc.build_pbc_gdf)
-    adds the dropped G = 0 term of the exchange, M S dm S with its 'ovlp'
-    (exxdiv "ewald", as ops/pbcft.aft_k)."""
-    if dm.ndim == 3:
-        return torch.stack([df_k(df, d) for d in dm])
+    for dm (2, nao, nao) (polarized; by default a dm with one axis more
+    than a matrix). A batch (B (nb, nao, naux, nao)) takes dm (nb, [2,]
+    nao, nao). One intermediate U[k,Q,j] = (dm B_Q)[k,j] of B's size. A
+    periodic fit that carries 'madelung' (scf/pbc.build_pbc_gdf) adds the
+    dropped G = 0 term of the exchange, M S dm S with its 'ovlp' (exxdiv
+    "ewald", as ops/pbcft.aft_k)."""
     b = df["B"]
-    nao = b.shape[0]
+    batched = b.ndim == 4
+    if polarized is None:
+        polarized = dm.ndim == 3 + batched
+    if polarized:
+        return torch.stack([df_k(df, d, False) for d in dm.unbind(-3)],
+                           dim=-3)
+    nao = b.shape[-1]
+    if batched:
+        nb = b.shape[0]
+        u = dm @ b.reshape(nb, nao, -1)
+        return b.reshape(nb, -1, nao).mT @ u.reshape(nb, -1, nao)
     u = dm @ b.reshape(nao, -1)
     k = b.reshape(-1, nao).T @ u.reshape(-1, nao)
     if "madelung" in df:

@@ -5,6 +5,10 @@ no tensors: `theta` (a dict of precomputed integrals, grid tables and
 occupation weights) is the only state.
 
 State convention: restricted -> dm (nao, nao); polarized -> dm (2, nao, nao).
+A batch of B geometries (parallel/batch.py) puts a leading axis on the
+state, (B, nao, nao) or (B, 2, nao, nao), and on every theta tensor of the
+dense and DF routes, (B, ...): the engines' products carry it, the kernels
+take it in one launch, and energies come out (B,).
 
 Four routes for J and K, chosen by what theta carries:
   - dense: the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl)); J
@@ -48,17 +52,20 @@ from .orth import LARGE
 
 
 def orthogonal_fock_to_dm(fock, X, keep, occ):
-    """fock: (..., nao, nao); X: (nao, nao) masked orthogonalizer;
-    occ: (..., nao) occupation weights aligned to ascending eigenvalues.
-    Returns (dm, orbital energies, C)."""
-    fp = torch.einsum("im,...ij,jn->...mn", X, fock, X)
+    """fock: (..., nao, nao); X: (nao, nao) masked orthogonalizer, or (B,
+    nao, nao) with keep (B, nao) for a batch whose fock is (B, [2,] nao,
+    nao); occ: (..., nao) occupation weights aligned to ascending
+    eigenvalues. Returns (dm, orbital energies, C)."""
+    if fock.ndim > X.ndim and X.ndim == 3:     # a batch with a spin axis
+        X, keep = X.unsqueeze(-3), keep.unsqueeze(-2)
+    fp = torch.einsum("...im,...ij,...jn->...mn", X, fock, X)
     # pin masked-out directions high so they are never occupied
-    pin = torch.where(keep, torch.zeros_like(X[0]),
-                      torch.full_like(X[0], LARGE))
-    fp = fp + torch.diag(pin)
+    pin = torch.where(keep, torch.zeros_like(X[..., 0, :]),
+                      torch.full_like(X[..., 0, :], LARGE))
+    fp = fp + torch.diag_embed(pin)
     p, w, u = eigh_density(fp, occ)
-    c = torch.einsum("ij,...jk->...ik", X, u)
-    dm = torch.einsum("ik,...kl,jl->...ij", X, p, X)
+    c = torch.einsum("...ij,...jk->...ik", X, u)
+    dm = torch.einsum("...ik,...kl,...jl->...ij", X, p, X)
     return dm, w, c
 
 
@@ -74,7 +81,11 @@ class HFEngine:
         self.jk_info = jk_info
 
     def dm_tot(self, dm):
-        return dm.sum(dim=0) if self.polarized else dm
+        return dm.sum(dim=-3) if self.polarized else dm
+
+    def _spin(self, t):
+        """t (..., n, n) with an axis for the spins of a polarized state."""
+        return t.unsqueeze(-3) if self.polarized else t
 
     @staticmethod
     def _exact(theta):
@@ -103,9 +114,11 @@ class HFEngine:
         if "pbcft" in theta:
             return aft_k(theta, dm)
         if "df" in theta:
-            return df_k(theta["df"], dm)
-        if dm.ndim == 3:
-            return torch.stack([self._k(theta, d) for d in dm])
+            return df_k(theta["df"], dm, self.polarized)
+        if self.polarized:
+            return torch.stack([ds_jk_kplanes(theta["eri_k"],
+                                              d.contiguous())[1]
+                                for d in dm.unbind(-3)], dim=-3)
         return ds_jk_kplanes(theta["eri_k"], dm.contiguous())[1]
 
     def jk_parts(self, dm, theta):
@@ -119,14 +132,14 @@ class HFEngine:
             return self._exact_jk(theta, dm, True, True)
         eri_k = theta["eri_k"]
         if self.polarized:
-            ju, ku = ds_jk_kplanes(eri_k, dm[0].contiguous())
-            jd, kd = ds_jk_kplanes(eri_k, dm[1].contiguous())
-            return ju + jd, torch.stack([ku, kd])
+            ju, ku = ds_jk_kplanes(eri_k, dm.select(-3, 0).contiguous())
+            jd, kd = ds_jk_kplanes(eri_k, dm.select(-3, 1).contiguous())
+            return ju + jd, torch.stack([ku, kd], dim=-3)
         return ds_jk_kplanes(eri_k, dm.contiguous())
 
     def fock_from_parts(self, dm, j, k, theta):
         if self.polarized:
-            return theta["hcore"][None] + j[None] - k
+            return self._spin(theta["hcore"] + j) - k
         return theta["hcore"] + j - 0.5 * k
 
     def fock(self, dm, theta):
@@ -141,14 +154,14 @@ class HFEngine:
         return self.dm_from_fock(self.fock(dm, theta), theta)
 
     def energy_from_parts(self, dm, j, k, theta):
-        """Total energy from precomputed J/K."""
+        """Total energy from precomputed J/K ((B,) for a batch)."""
         dmt = self.dm_tot(dm)
-        e1 = torch.einsum("ij,ij->", theta["hcore"], dmt)
-        ej = 0.5 * torch.einsum("ij,ij->", j, dmt)
+        e1 = torch.einsum("...ij,...ij->...", theta["hcore"], dmt)
+        ej = 0.5 * torch.einsum("...ij,...ij->...", j, dmt)
         if self.polarized:
-            ek = -0.5 * torch.einsum("sij,sij->", k, dm)
+            ek = -0.5 * torch.einsum("...sij,...sij->...", k, dm)
         else:
-            ek = -0.25 * torch.einsum("ij,ij->", k, dm)
+            ek = -0.25 * torch.einsum("...ij,...ij->...", k, dm)
         return e1 + ej + ek + theta["enuc"]
 
     def energy(self, dm, theta):
@@ -156,10 +169,10 @@ class HFEngine:
 
     # --- DIIS plumbing (solver iterates on the Fock matrix) ---
     def diis_err(self, fock, dm, theta):
-        s, X = theta["ovlp"], theta["X"]
-        fds = torch.einsum("...ij,...jk,kl->...il", fock, dm, s)
+        s, X = self._spin(theta["ovlp"]), self._spin(theta["X"])
+        fds = torch.einsum("...ij,...jk,...kl->...il", fock, dm, s)
         comm = fds - fds.transpose(-1, -2)
-        return torch.einsum("im,...ij,jn->...mn", X, comm, X)
+        return torch.einsum("...im,...ij,...jn->...mn", X, comm, X)
 
 
 class KSEngine(HFEngine):
@@ -205,10 +218,12 @@ class KSEngine(HFEngine):
         short-range K, on the pair transforms with the weights wsr{i} or as
         RI-K on the fits df and df_sr{i}."""
         key = f"eri_lr_k{i}"
+        pol = self.polarized
         if f"df_lr{i}" in theta:
-            return df_k(theta[f"df_lr{i}"], dm)
+            return df_k(theta[f"df_lr{i}"], dm, pol)
         if f"df_sr{i}" in theta:
-            return df_k(theta["df"], dm) - df_k(theta[f"df_sr{i}"], dm)
+            return (df_k(theta["df"], dm, pol)
+                    - df_k(theta[f"df_sr{i}"], dm, pol))
         if "pbcft" in theta:
             p = theta["pbcft"]
             return aft_k(theta, dm) - aft_k_weighted(p, dm, p[f"wsr{i}"])
@@ -217,8 +232,9 @@ class KSEngine(HFEngine):
                 f"theta has no long-range exchange of term {i}: no dense "
                 f"attenuated ERI ({key!r}), density fit (df_lr{i}, df_sr{i}) "
                 "or periodic pair transforms (pbcft)")
-        if dm.ndim == 3:
-            return torch.stack([self._k_lr(theta, d, i) for d in dm])
+        if pol:
+            return torch.stack([ds_jk(theta[key], d.contiguous())[0]
+                                for d in dm.unbind(-3)], dim=-3)
         return ds_jk(theta[key], dm.contiguous())[0]
 
     def lr_parts(self, dm, theta):
@@ -235,7 +251,7 @@ class KSEngine(HFEngine):
         hyb = self.xc.exx_fraction
         # restricted: dm counts both spins, so each exchange takes half
         half = 1.0 if self.polarized else 0.5
-        f = (f[None] if self.polarized else f) + vxc
+        f = self._spin(f) + vxc
         if hyb != 0.0:
             f = f - half * hyb * k
         for (c, _), kl in zip(self.xc.exx_lr, klr):
@@ -247,8 +263,8 @@ class KSEngine(HFEngine):
         `exc` is the XC energy when the caller already has it (else one
         more grid pass computes it)."""
         dmt = self.dm_tot(dm)
-        e1 = torch.einsum("ij,ij->", theta["hcore"], dmt)
-        ej = 0.5 * torch.einsum("ij,ij->", j, dmt)
+        e1 = torch.einsum("...ij,...ij->...", theta["hcore"], dmt)
+        ej = 0.5 * torch.einsum("...ij,...ij->...", j, dmt)
         if exc is None:
             exc = exc_energy(self.xc, dm, theta["grid"], self.polarized,
                              xcparams=theta.get("xc_params"))
@@ -257,9 +273,10 @@ class KSEngine(HFEngine):
         e = e1 + ej + exc + theta["enuc"]
         # polarized: 1/2 sum_s <K_s, D_s>; restricted: 1/4 <K, D>
         quarter = 0.5 if self.polarized else 0.25
+        tr = "...sij,...sij->..." if self.polarized else "...ij,...ij->..."
         hyb = self.xc.exx_fraction
         if hyb != 0.0:
-            e = e - quarter * hyb * torch.einsum("...ij,...ij->", k, dm)
+            e = e - quarter * hyb * torch.einsum(tr, k, dm)
         for (c, _), kl in zip(self.xc.exx_lr, klr):
-            e = e - quarter * c * torch.einsum("...ij,...ij->", kl, dm)
+            e = e - quarter * c * torch.einsum(tr, kl, dm)
         return e

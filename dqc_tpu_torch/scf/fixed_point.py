@@ -1,11 +1,12 @@
 """SCF fixed-point solver: DIIS-accelerated self-consistency loop, and the
 implicit-function derivative of its fixed point.
 
-Counterpart of dqc_tpu/scf/fixed_point.py. The loop is a Python loop; ring
+Counterpart of dqc_tpu/scf/fixed_point.py. The loop is a Python loop over
+a batch of states (diis_solve_batch; diis_solve is the batch of one); ring
 buffers, the masked least-squares solve, the conditioning guard,
 best-iterate tracking, the non-finite freeze and the patience exit keep the
-meaning they have in the JAX package, so iteration counts and residual
-histories can be compared.
+meaning they have in the JAX package, per member as under its jax.vmap,
+so iteration counts and residual histories can be compared.
 
 `implicit_fixed_point(step, solver, theta, x0)` is the counterpart of the
 JAX package's custom_jvp of the same name (and of the GMRES adjoint of its
@@ -66,7 +67,8 @@ class SCFOptions(NamedTuple):
 def diis_solve(step_and_err: Callable, f0, opts: SCFOptions):
     """Generic CDIIS loop on a flattened real state vector (a complex
     state, the Bloch Fock matrices of a k-point cell, is carried as stacked
-    (re, im), so the history, B and the extrapolation stay real algebra).
+    (re, im), so the history, B and the extrapolation stay real algebra):
+    diis_solve_batch of a batch of one.
 
     step_and_err(f) -> (next Fock from the plain SC map, DIIS error tensor,
     typically X^T [F,D,S] X). f0: initial state tensor.
@@ -82,112 +84,157 @@ def diis_solve(step_and_err: Callable, f0, opts: SCFOptions):
     if f0.is_complex():
         raise TypeError("diis_solve takes a real state; carry a complex one "
                         "as stacked (re, im), as scf/kpbc.py does")
+
+    def step_one(f):
+        f_new, e_new = step_and_err(f[0])
+        return f_new[None], e_new[None]
+    f_in, f_raw, n_iter, best_err, errh = diis_solve_batch(step_one, f0[None],
+                                                           opts)
+    return f_in[0], f_raw[0], n_iter[0], best_err[0], torch.as_tensor(errh[0])
+
+
+def _solve_c(B, mask, eye_h):
+    """The constrained least-squares DIIS coefficients over the slots in
+    use (mask) of one member's error inner products B (H, H): uniform
+    scaling, the bordered system, and its symmetric-eigh pseudo-inverse
+    with rcond as in pinv(rcond=1e-12): near the floor the error vectors
+    are nearly dependent, and a cutoff of 100*eps would keep noise
+    directions whose amplified coefficients stall the extrapolation."""
+    dtype, dev = B.dtype, B.device
+    H = B.shape[0]
+    maskf = mask.to(dtype)
+    scale = torch.clamp(
+        torch.max(torch.abs(B) * maskf[:, None] * maskf[None, :]),
+        min=torch.finfo(dtype).tiny)
+    Bn = B / scale
+    mask2 = mask[:, None] & mask[None, :]
+    Bn = torch.where(mask2, Bn, eye_h.to(dtype))
+    A = torch.zeros((H + 1, H + 1), dtype=dtype, device=dev)
+    A[:H, :H] = Bn
+    A[:H, H] = maskf
+    A[H, :H] = maskf
+    rhs = torch.zeros((H + 1,), dtype=dtype, device=dev)
+    rhs[H] = 1.0
+    ew, ev = torch.linalg.eigh(A)
+    rcond = max(100 * torch.finfo(dtype).eps, 1e-12)
+    cutoff = rcond * torch.max(torch.abs(ew))
+    big = torch.abs(ew) > cutoff
+    inv_w = torch.where(big, 1.0 / torch.where(big, ew, torch.ones_like(ew)),
+                        torch.zeros_like(ew))
+    return (ev @ (inv_w * (ev.T @ rhs)))[:H] * maskf
+
+
+def diis_solve_batch(step_and_err: Callable, f0, opts: SCFOptions):
+    """The DIIS loop for a batch of independent states f0 (nb, ...): one
+    DIIS history, best iterate, patience and non-finite freeze per member,
+    as jax.vmap of the JAX package's while_loop keeps them. Every iteration
+    steps the whole batch (one launch of each kernel) and makes one host
+    sync, the members' residuals; a member that has stopped (tol, maxiter
+    or patience) is frozen at its state, as the vmapped loop selects the
+    old carry for it, and the loop ends when every member has stopped.
+    Members run in lockstep while they run, so they share the ring slot and
+    fill count of an iteration. Each member's extrapolation (its H x H
+    system) is its own small solve, with the arithmetic of a batch of one.
+
+    Returns (f_in (nb, ...), f_raw (nb, ...), n_iter [nb], best_err [nb],
+    err_hist (nb, maxiter) numpy, NaN past each member's exit)."""
+    nb = f0.shape[0]
     shape = f0.shape
-    ff = f0.reshape(-1)
+    ff = f0.reshape(nb, -1)
     dtype, dev = ff.dtype, ff.device
-    n = ff.shape[0]
     H = opts.diis_size
-    tiny = torch.finfo(dtype).tiny
-    eps = torch.finfo(dtype).eps
-
-    def step_flat(x):
-        f_new, e_new = step_and_err(x.reshape(shape))
-        return f_new.reshape(-1), e_new.reshape(-1)
-
-    fhist = torch.zeros((H, n), dtype=dtype, device=dev)
-    ehist = None
     eye_h = torch.eye(H, dtype=torch.bool, device=dev)
     ar_h = torch.arange(H, device=dev)
-    errh = torch.full((opts.maxiter,), float("nan"), dtype=dtype, device=dev)
-
-    def solve_c(B, mask):
-        maskf = mask.to(dtype)
-        scale = torch.clamp(
-            torch.max(torch.abs(B) * maskf[:, None] * maskf[None, :]),
-            min=tiny)
-        Bn = B / scale
-        mask2 = mask[:, None] & mask[None, :]
-        Bn = torch.where(mask2, Bn, eye_h.to(dtype))
-        A = torch.zeros((H + 1, H + 1), dtype=dtype, device=dev)
-        A[:H, :H] = Bn
-        A[:H, H] = maskf
-        A[H, :H] = maskf
-        rhs = torch.zeros((H + 1,), dtype=dtype, device=dev)
-        rhs[H] = 1.0
-        # symmetric-eigh pseudo-inverse; rcond as in pinv(rcond=1e-12): near
-        # the floor the error vectors are nearly dependent, and a cutoff of
-        # 100*eps would keep noise directions whose amplified coefficients
-        # stall the extrapolation
-        ew, ev = torch.linalg.eigh(A)
-        rcond = max(100 * eps, 1e-12)
-        cutoff = rcond * torch.max(torch.abs(ew))
-        big = torch.abs(ew) > cutoff
-        inv_w = torch.where(big, 1.0 / torch.where(big, ew,
-                                                   torch.ones_like(ew)),
-                            torch.zeros_like(ew))
-        return (ev @ (inv_w * (ev.T @ rhs)))[:H] * maskf
-
-    it = 0
-    nfill = 0
-    slot_bad = [False] * H      # ring-buffer slots holding a non-finite iterate
+    fhist = torch.zeros((nb, H, ff.shape[1]), dtype=dtype, device=dev)
+    ehist = None
+    errh = np.full((nb, opts.maxiter), np.nan)
+    # ring-buffer slots holding a non-finite iterate, per member
+    slot_bad = np.zeros((nb, H), dtype=bool)
     best_in, best_raw = ff, ff
-    best_err = float("inf")
-    best_it = 0
+    best_err = [float("inf")] * nb
+    best_it = [0] * nb
+    n_iter = [0] * nb
+    active = [True] * nb
+    it = 0
     while True:
-        go = it < opts.maxiter and best_err > opts.tol
-        if opts.diis_patience > 0:
-            go = go and (it - best_it <= opts.diis_patience)
-        if not go:
+        for m in range(nb):
+            if not active[m]:
+                continue
+            go = it < opts.maxiter and best_err[m] > opts.tol
+            if opts.diis_patience > 0:
+                go = go and (it - best_it[m] <= opts.diis_patience)
+            if not go:
+                active[m], n_iter[m] = False, it
+        if not any(active):
             break
-        f_raw, e_new = step_flat(ff)
+        f_raw, e_new = step_and_err(ff.reshape(shape))
+        f_raw = f_raw.reshape(nb, -1)
+        e_new = e_new.reshape(nb, -1)
         if ehist is None:
-            ehist = torch.zeros((H, e_new.shape[0]), dtype=e_new.dtype,
+            ehist = torch.zeros((nb, H, e_new.shape[1]), dtype=e_new.dtype,
                                 device=dev)
         # errnorm belongs to the PAIR (f_raw, state(ff)): step_and_err
         # derives the density from the INPUT ff and measures the new Fock's
         # commutator against it
         f_new = ((1.0 - opts.damping) * f_raw + opts.damping * ff
                  if opts.damping > 0.0 else f_raw)
-        errnorm = float(torch.max(torch.abs(e_new)))   # the one host sync
-        errh[it] = errnorm
-        # push into ring buffers
+        # the one host sync: every member's residual
+        errs = torch.amax(torch.abs(e_new), dim=-1).tolist()
+        # push into the ring buffers (a stopped member's are never read)
         slot = it % H
-        fhist[slot] = f_new
-        ehist[slot] = e_new
-        nfill = min(nfill + 1, H)
-        # DIIS extrapolation over filled slots (uniform scaling keeps the
-        # constrained least-squares solution exact)
-        filled = ar_h < nfill
-        finite = errnorm == errnorm and abs(errnorm) != float("inf")
-        slot_bad[slot] = not finite
-        if any(slot_bad):
-            # a non-finite iterate poisons the history until its slot is
-            # overwritten: the extrapolation is non-finite too (eigh would
-            # refuse the matrix), and the next iterate is thrown away below
-            f_diis = torch.full_like(ff, float("nan"))
-        else:
-            B = ehist @ ehist.T
-            c = solve_c(B, filled)
-            # conditioning guard: blown-up coefficients amplify noise in
-            # the Fock combination — re-solve on the most recent <=4
-            # iterates
-            age = torch.remainder(it - ar_h, H)
-            c_recent = solve_c(B, filled & (age < 4))
-            c = torch.where(torch.sum(torch.abs(c)) > 20.0, c_recent, c)
-            f_diis = c @ fhist
-        ff_next = f_diis if it + 1 >= opts.diis_start else f_new
-        # best-iterate tracking: a diverging extrapolation must not discard
-        # the best state seen; non-finite iterates never become "best"
-        if finite and errnorm < best_err:
-            best_in, best_raw = ff, f_raw
-            best_err, best_it = errnorm, it
-        if not finite:
-            # a non-finite iterate poisons the history; freeze on the best
-            ff_next = best_in
-        ff = ff_next
+        fhist[:, slot] = f_new
+        ehist[:, slot] = e_new
+        filled = ar_h < min(it + 1, H)
+        age = torch.remainder(it - ar_h, H)
+        ff_next = []
+        for m in range(nb):
+            if not active[m]:
+                ff_next.append(ff[m])
+                continue
+            errh[m, it] = errs[m]
+            finite = errs[m] == errs[m] and abs(errs[m]) != float("inf")
+            slot_bad[m, slot] = not finite
+            if slot_bad[m].any():
+                # a non-finite iterate poisons the history until its slot is
+                # overwritten: the extrapolation is non-finite too (eigh
+                # would refuse the matrix), and the next iterate is thrown
+                # away below
+                f_diis = torch.full_like(ff[m], float("nan"))
+            else:
+                # DIIS extrapolation over filled slots (uniform scaling
+                # keeps the constrained least-squares solution exact)
+                B = ehist[m] @ ehist[m].T
+                c = _solve_c(B, filled, eye_h)
+                # conditioning guard: blown-up coefficients amplify noise
+                # in the Fock combination — re-solve on the most recent <=4
+                # iterates
+                c_recent = _solve_c(B, filled & (age < 4), eye_h)
+                c = torch.where(torch.sum(torch.abs(c)) > 20.0, c_recent, c)
+                f_diis = c @ fhist[m]
+            nxt = f_diis if it + 1 >= opts.diis_start else f_new[m]
+            # best-iterate tracking: a diverging extrapolation must not
+            # discard the best state seen; non-finite iterates never become
+            # "best"
+            if finite and errs[m] < best_err[m]:
+                best_err[m], best_it[m] = errs[m], it
+                best_in = _put_row(best_in, m, ff[m])
+                best_raw = _put_row(best_raw, m, f_raw[m])
+            if not finite:
+                # a non-finite iterate poisons the history; freeze on the
+                # best
+                nxt = best_in[m]
+            ff_next.append(nxt)
+        ff = torch.stack(ff_next)
         it += 1
-    return (best_in.reshape(shape), best_raw.reshape(shape), it,
+    return (best_in.reshape(shape), best_raw.reshape(shape), n_iter,
             best_err, errh)
+
+
+def _put_row(x, m, row):
+    """x with row m replaced, as a new tensor (x may be another's view)."""
+    x = x.clone()
+    x[m] = row
+    return x
 
 
 def gmres(matvec: Callable, b, tol: float = 1e-12, maxiter: int = 200,

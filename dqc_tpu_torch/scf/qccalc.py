@@ -64,6 +64,7 @@ from ..ops.aoeval import eval_ao
 from ..ops.eri import eri_dense, screened_pair_classes
 from ..ops.pbc import estimate_rcut
 from ..ops.shellstruct import nsph, pack_basis
+from ..utils.cache import Cache
 from ..utils.config import config
 from ..utils.datastruct import SpinParam
 from ..utils.logger import log
@@ -111,12 +112,14 @@ def _screened(mol):
 
 def gwh_fock(theta, polarized: bool):
     """Generalized Wolfsberg-Helmholtz initial Fock — a far better start
-    than the bare core guess for large molecules."""
+    than the bare core guess for large molecules (of every member of a
+    stacked theta too)."""
     h, s = theta["hcore"], theta["ovlp"]
-    d = torch.diagonal(h)
-    f = 0.5 * 1.75 * (d[:, None] + d[None, :]) * s
-    f = f - torch.diag(torch.diagonal(f)) + torch.diag(d)
-    return torch.stack([f, f]) if polarized else f
+    d = torch.diagonal(h, dim1=-2, dim2=-1)
+    f = 0.5 * 1.75 * (d[..., :, None] + d[..., None, :]) * s
+    f = (f - torch.diag_embed(torch.diagonal(f, dim1=-2, dim2=-1))
+         + torch.diag_embed(d))
+    return torch.stack([f, f], dim=-3) if polarized else f
 
 
 class SCF_QCCalc:
@@ -401,6 +404,19 @@ class SCF_QCCalc:
         if self.mol.device.type == "cuda":
             torch.cuda.synchronize(self.mol.device)
 
+    def _theta_cache(self):
+        """The on-disk cache of the system's theta (Mol/Sol.set_cache), or
+        None. Only run() reads it: a cached tensor has no graph, so every
+        derivative (solve_dm, energy_fn, energy_grad, energy_batch)
+        rebuilds theta from the params."""
+        mol = self.mol
+        fname = getattr(mol, "_cache_fname", None)
+        if fname is None:
+            return None
+        return Cache(fname, signature=mol.cache_signature,
+                     paramnames=mol._cache_paramnames, device=mol.device,
+                     fingerprint=getattr(mol, "cache_fingerprint", ""))
+
     # --- user API --------------------------------------------------------
     def run(self):
         with torch.no_grad():
@@ -408,7 +424,8 @@ class SCF_QCCalc:
             theta = self._theta
             if theta is None:
                 theta = self._build_theta(self._all_params(),
-                                          stats=self.stats)
+                                          stats=self.stats,
+                                          cache=self._theta_cache())
             self._sync()
             t1 = time.perf_counter()
             self._last_jk = None
@@ -667,7 +684,7 @@ def _df_fit(mol, params, dfset, omega=None):
 
 def _make_theta(mol, params, occ, stats, grid=None, family=None,
                  omegas=(), dfset=None, mode="dense", jk_info=None,
-                 warm=None):
+                 warm=None, cache=None):
     """theta of a route (`mode`, from _route): one-electron integrals and
     occupations (hcore with the external potential of params['vext']);
     eri_k (dense), the fit df (DF), the weighted canonical
@@ -676,99 +693,160 @@ def _make_theta(mol, params, occ, stats, grid=None, family=None,
     `warm`, built without a graph (stream); for KS the grid tables and the
     xc_params; and per omega an erf-attenuated eri_lr_k{i} (dense) or its
     fit df_lr{i} (DF). Each nao^4 tensor is built, laid out and its
-    J-layout intermediate freed before the next build starts. `stats` gets
-    jk_mode and the stage seconds: int1e_s; eri_s and eri_lr_s (dense);
-    df_s with its split coul2c_s, coul3c_s, factor_s, naux and
-    metric_ratio, and df_lr_s with the per-omega records df_lr (DF);
-    jk_blocks_s (blocked) or jk_facs_s, warm_df_s and warm_naux (stream),
-    with jk_blocks_bytes and jk_combos (both); grid_s."""
+    J-layout intermediate freed before the next build starts.
+
+    theta is built in the JAX package's named parts (its _theta_parts):
+    "core" (the one-electron integrals, hcore with vext, and eri_k on the
+    dense route), "df", "jkb{i}", "jk" and "warmdf", "grid", "erilr{i}" and
+    "dflr{i}". With a `cache` (utils/cache.Cache; run() of a molecule after
+    set_cache) each part the cache takes is loaded from its file when it is
+    there and stored after it is built; stats['theta_cached'] lists the
+    parts loaded. `stats` gets jk_mode and the seconds of the stages built:
+    int1e_s; eri_s and eri_lr_s (dense); df_s with its split coul2c_s,
+    coul3c_s, factor_s, naux and metric_ratio, and df_lr_s with the
+    per-omega records df_lr (DF); jk_blocks_s (blocked) or jk_facs_s,
+    warm_df_s and warm_naux (stream), with jk_blocks_bytes and jk_combos
+    (both); grid_s."""
     dev = mol.device
+    times = {"jk_mode": mode}
+    loaded = []
 
     def sync():
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
+
+    def part(name, build, key=None):
+        """The entries of part `name`: the cache's, or build() timed under
+        `key` (and stored where the cache takes the part)."""
+        if cache is not None and cache.has_tree(name):
+            loaded.append(name)
+            return cache.cache_tree(name, build)
+        t = time.perf_counter()
+        out = (build() if cache is None
+               else cache.cache_tree(name, build, flush=False))
+        sync()
+        if key is not None:
+            times[key] = time.perf_counter() - t
+        return out
 
     def exchange_layout(omega=None):
         eri = eri_dense(mol.meta, params["basis"], screened=scr, omega=omega)
         out = eri.permute(0, 2, 1, 3).contiguous()
         del eri
         return out
-    t0 = time.perf_counter()
-    theta = build_core_theta(mol.meta, params["basis"], params["atomzs"],
-                             efield=params.get("efield"),
-                             efield_grad=params.get("efield_grad"),
-                             efield_grad2=params.get("efield_grad2"),
-                             with_eri=False)
-    if "vext" in params:
-        # the external potential on the molecule's grid (built on first use
-        # for HF), as in the JAX package's HF and KS part_core
-        theta["hcore"] = theta["hcore"] + vext_matrix(
-            mol.meta, params["basis"], mol.setup_grid(), params["vext"])
-    sync()
-    t1 = time.perf_counter()
-    times = {"int1e_s": t1 - t0, "jk_mode": mode}
-    if mode == "dense":
-        scr = _screened(mol)
-        theta["eri_k"] = exchange_layout()
+
+    scr = _screened(mol) if mode == "dense" else None
+
+    def core():
+        t0 = time.perf_counter()
+        th = build_core_theta(mol.meta, params["basis"], params["atomzs"],
+                              efield=params.get("efield"),
+                              efield_grad=params.get("efield_grad"),
+                              efield_grad2=params.get("efield_grad2"),
+                              with_eri=False)
+        if "vext" in params:
+            # the external potential on the molecule's grid (built on first
+            # use for HF), as in the JAX package's HF and KS part_core
+            th["hcore"] = th["hcore"] + vext_matrix(
+                mol.meta, params["basis"], mol.setup_grid(), params["vext"])
         sync()
-        times["eri_s"] = time.perf_counter() - t1
-    elif mode == "df":
-        theta["df"], info = _df_fit(mol, params, dfset)
-        times["df_s"] = time.perf_counter() - t1
-        times.update(info)
-    else:
+        t1 = time.perf_counter()
+        times["int1e_s"] = t1 - t0
+        if mode == "dense":
+            th["eri_k"] = exchange_layout()
+            sync()
+            times["eri_s"] = time.perf_counter() - t1
+        return th
+
+    theta = part("core", core)
+    if mode == "df":
+        def fit():
+            th, info = _df_fit(mol, params, dfset)
+            times.update(info)
+            return {"df": th}
+        theta.update(part("df", fit, "df_s"))
+    elif mode in ("blocked", "stream"):
         bmeta, jkm = jk_info
         times.update(jk_blocks_bytes=jk_blocks_nbytes(jkm),
                      jk_combos=len(jk_combos(jkm)))
         if mode == "blocked":
-            for ci, blk in enumerate(build_jk_blocks(bmeta, params["basis"],
-                                                     jkm)):
-                theta[f"jkb{ci}"] = blk
-            sync()
-            times["jk_blocks_s"] = time.perf_counter() - t1
+            names = [f"jkb{ci}" for ci in range(len(jk_combos(jkm)))]
+            if cache is not None and all(cache.has_tree(n) for n in names):
+                for n in names:
+                    theta.update(part(n, None))
+            else:
+                t1 = time.perf_counter()
+                for n, blk in zip(names, build_jk_blocks(
+                        bmeta, params["basis"], jkm)):
+                    d = {n: blk}
+                    theta.update(d if cache is None else cache.cache_tree(
+                        n, lambda d=d: d, flush=False))
+                sync()
+                times["jk_blocks_s"] = time.perf_counter() - t1
         else:
-            theta["jk_facs"] = factors_to_theta(
-                build_jk_factors(bmeta, params["basis"], jkm))
-            sync()
-            t2 = time.perf_counter()
-            times["jk_facs_s"] = t2 - t1
-            # the fit only steers the solver (_stream_solve): no graph
-            with torch.no_grad():
-                theta["warm_df"], info = _df_fit(mol, params, warm)
-            sync()
-            times.update(warm_df_s=time.perf_counter() - t2,
-                         warm_naux=info["naux"])
+            theta.update(part("jk", lambda: {"jk_facs": factors_to_theta(
+                build_jk_factors(bmeta, params["basis"], jkm))},
+                "jk_facs_s"))
+
+            def warm_fit():
+                # the fit only steers the solver (_stream_solve): no graph
+                with torch.no_grad():
+                    th, info = _df_fit(mol, params, warm)
+                times["warm_naux"] = info["naux"]
+                return {"warm_df": th}
+            theta.update(part("warmdf", warm_fit, "warm_df_s"))
     theta["occ"] = occ
     if grid is not None:
-        t2 = time.perf_counter()
-        theta["grid"] = setup_grid_theta(mol.meta, params["basis"], grid,
-                                         family=family)
+        theta.update(part("grid", lambda: {"grid": setup_grid_theta(
+            mol.meta, params["basis"], grid, family=family)}, "grid_s"))
         theta["xc_params"] = params.get("xc_params")
-        sync()
-        times["grid_s"] = time.perf_counter() - t2
-    if omegas:
-        t3 = time.perf_counter()
-        lr_info = []
-        for i, w in enumerate(omegas):
-            if mode == "dense":
-                t = exchange_layout(omega=w)
-                # K1 counts its launches on these tensors under this tag
-                t.jk_tag = "eri_lr"
-                theta[f"eri_lr_k{i}"] = t
-            else:
-                theta[f"df_lr{i}"], info = _df_fit(mol, params, dfset,
-                                                   omega=w)
-                lr_info.append(dict(info, omega=w))
-        sync()
+    lr_info = []
+    t3 = time.perf_counter()
+    for i, w in enumerate(omegas):
         if mode == "dense":
-            times["eri_lr_s"] = time.perf_counter() - t3
+            th = part(f"erilr{i}",
+                      lambda w=w: {f"eri_lr_k{i}": exchange_layout(omega=w)})
+            # K1 counts its launches on these tensors under this tag
+            th[f"eri_lr_k{i}"].jk_tag = "eri_lr"
         else:
-            times["df_lr_s"] = time.perf_counter() - t3
+            def lr_fit(i=i, w=w):
+                th, info = _df_fit(mol, params, dfset, omega=w)
+                lr_info.append(dict(info, omega=w))
+                return {f"df_lr{i}": th}
+            th = part(f"dflr{i}", lr_fit)
+        theta.update(th)
+    if omegas:
+        times["eri_lr_s" if mode == "dense" else "df_lr_s"] = \
+            time.perf_counter() - t3
+        if mode != "dense":
             times["df_lr"] = lr_info
+    if cache is not None:
+        times["theta_cached"] = loaded
+        cache.flush()
     if stats is not None:
         stats.update(times)
     log("theta built: " + ", ".join(f"{k} {v:.2f}s" for k, v in times.items()
                                     if k.endswith("_s")))
+    return theta
+
+
+def _whole_theta(build, params, stats, cache):
+    """A cell's theta, build(params, stats), as the one part "all" that the
+    JAX package caches for a calc without named parts: loaded from the
+    cache where it holds it, else built (and stored where the cache takes
+    it). xc_params always come from params, never from the file."""
+    if cache is None:
+        return build(params, stats)
+    loaded = cache.has_tree("all")
+
+    def fn():
+        th = build(params, stats)
+        th.pop("xc_params", None)
+        return th
+    theta = dict(cache.cache_tree("all", fn))
+    theta["xc_params"] = params.get("xc_params")
+    if stats is not None:
+        stats["theta_cached"] = ["all"] if loaded else []
     return theta
 
 
@@ -797,7 +875,7 @@ def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
         ls_ao = sol.lattice.get_lattice_ls(
             estimate_rcut(sol.meta, sol.params, AO_PRECISION))
 
-    def build_theta(params, stats=None):
+    def build(params, stats=None):
         dev = sol.device
         times = {"jk_mode": "aft" if gdfset is None else "gdf"}
         gdf_aux = None
@@ -821,6 +899,9 @@ def _pbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
         if stats is not None:
             stats.update(times)
         return theta
+
+    def build_theta(params, stats=None, cache=None):
+        return _whole_theta(build, params, stats, cache)
 
     engine = (HFEngine(polarized=polarized) if xc is None
               else KSEngine(xc, polarized=polarized))
@@ -857,7 +938,7 @@ def _kpbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
         sol.meta, sol.params, AO_PRECISION)) if engine.semilocal
         else None)
 
-    def build_theta(params, stats=None):
+    def build(params, stats=None):
         gdf_aux = None
         if gdfset is not None:
             gdf_aux = (gdfset[0], dict(gdfset[1],
@@ -873,6 +954,9 @@ def _kpbc_calc(sol, xc, restricted, opts) -> SCF_QCCalc:
         if stats is not None:
             stats.update(times)
         return theta
+
+    def build_theta(params, stats=None, cache=None):
+        return _whole_theta(build, params, stats, cache)
 
     calc = SCF_QCCalc(sol, engine, build_theta=build_theta, opts=opts,
                       jk_mode="aft" if gdfset is None else "gdf")
@@ -905,9 +989,9 @@ def HF(mol, *, restricted: Optional[bool] = None, variational: bool = False,
     dfset = _df_setup(mol)
     warm = _warm_df_setup(mol) if mode == "stream" else None
 
-    def build_theta(params, stats=None):
+    def build_theta(params, stats=None, cache=None):
         return _make_theta(mol, params, occ, stats, dfset=dfset, mode=mode,
-                           jk_info=jk_info, warm=warm)
+                           jk_info=jk_info, warm=warm, cache=cache)
 
     return SCF_QCCalc(mol, HFEngine(polarized=polarized, jk_info=jk_info),
                       build_theta=build_theta, opts=opts, jk_mode=mode)
@@ -946,10 +1030,10 @@ def KS(mol, xc="lda_x", *, restricted: Optional[bool] = None,
     dfset = _df_setup(mol)
     warm = _warm_df_setup(mol) if mode == "stream" else None
 
-    def build_theta(params, stats=None):
+    def build_theta(params, stats=None, cache=None):
         return _make_theta(mol, params, occ, stats, grid=grid,
                            family=xc.family, omegas=omegas, dfset=dfset,
-                           mode=mode, jk_info=jk_info, warm=warm)
+                           mode=mode, jk_info=jk_info, warm=warm, cache=cache)
 
     calc = SCF_QCCalc(mol, KSEngine(xc, polarized=polarized,
                                     jk_info=jk_info),

@@ -62,6 +62,13 @@ def resolve_atom_bases(zs_int, basis) -> List[List[CGTOBasis]]:
     return out
 
 
+
+def _host(x):
+    """A float64 numpy copy of an array or a tensor on any device."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x, dtype=np.float64)
+
 class Mol:
     """Isolated molecule.
 
@@ -141,6 +148,8 @@ class Mol:
         self.grid_level = grid
         self._grid = None
         self._dfinfo = None
+        self._cache_fname = None
+        self._cache_paramnames = None
 
     def _t(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -198,11 +207,39 @@ class Mol:
     def dfinfo(self) -> Optional[DensityFitInfo]:
         return self._dfinfo
 
-    # --- hooks not ported yet --------------------------------------------
-
     def set_cache(self, fname: str, paramnames=None):
-        raise NotImplementedError(
-            "not ported yet: the on-disk theta cache (ROADMAP A16)")
+        """Cache theta's expensive tensors (integrals, grid tables) on disk
+        in the .npz file fname, under this molecule's cache_signature
+        (utils/cache.py); run() then loads what the file holds and builds
+        and stores the rest. paramnames limits the cache to the named theta
+        parts, the JAX package's names: "core" (one-electron integrals and,
+        on the dense route, eri_k), "grid", "df", "jk" and "warmdf"
+        (streamed route), "jkb{i}" (blocked), "erilr{i}", "dflr{i}"; None
+        caches every part. Derivatives never read the cache."""
+        self._cache_fname = fname
+        self._cache_paramnames = (None if paramnames is None
+                                  else list(paramnames))
+        return self
+
+    @property
+    def cache_signature(self) -> str:
+        """The system's signature in the cache file: the JAX package's
+        string for the same system (positions rounded to 1e-10 Bohr,
+        charges, every shell's exponents and coefficients, vext, grid
+        level, angular rule, charge and spin)."""
+        import hashlib
+        from ..grid.angular import angular_rule_tag
+        pos = np.round(_host(self.atompos), 10).tobytes()
+        zs = np.asarray(self.zs_int).tobytes()
+        shells = str([(b.angmom,
+                       ["%.10e" % float(a) for a in np.asarray(b.alphas)],
+                       ["%.10e" % float(c) for c in np.asarray(b.coeffs)])
+                      for ab in self.atombases for b in ab.bases])
+        vext_b = (b"" if self.vext is None
+                  else np.round(_host(self.vext), 10).tobytes())
+        h = hashlib.sha256(pos + zs + shells.encode() + vext_b).hexdigest()[:16]
+        return (f"mol2-{h}-grid{self.grid_level}-{angular_rule_tag()}"
+                f"-q{self.charge}-s{self.spin}")
 
     def setup_grid(self):
         """The molecule's integration grid (grid/factory.GridSpec, host

@@ -18,7 +18,7 @@ from ..utils.config import DTYPE, resolve_device
 from ..utils.datastruct import AtomCGTOBasis, DensityFitInfo, SpinParam
 from ..utils.safeops import occnumber
 from .lattice import Lattice, ewald_energy
-from .mol import resolve_atom_bases
+from .mol import _host, resolve_atom_bases
 
 
 class Sol:
@@ -65,6 +65,8 @@ class Sol:
         self.vext = None
         self._grid = None
         self._dfinfo = None
+        self._cache_fname = None
+        self._cache_paramnames = None
 
     def _t(self, x):
         return torch.as_tensor(x, dtype=self.dtype, device=self.device)
@@ -121,8 +123,39 @@ class Sol:
         return self._grid
 
     def set_cache(self, fname: str, paramnames=None):
-        raise NotImplementedError(
-            "not ported yet: the on-disk theta cache (ROADMAP A16)")
+        """Cache theta on disk in the .npz file fname (Mol.set_cache): a
+        cell's theta is one part, "all", as in the JAX package."""
+        self._cache_fname = fname
+        self._cache_paramnames = (None if paramnames is None
+                                  else list(paramnames))
+        return self
+
+    @property
+    def cache_signature(self) -> str:
+        """The JAX package's signature string of the same cell (positions
+        and lattice rounded to 1e-10 Bohr, charges, grid level, spin). It
+        leaves out the basis and the k-points; cache_fingerprint adds
+        them."""
+        import hashlib
+        pos = np.round(_host(self.atompos), 10).tobytes()
+        zs = np.asarray(self.zs_int).tobytes()
+        lat = np.round(_host(self.lattice.lattice_vectors()), 10).tobytes()
+        h = hashlib.sha256(pos + zs + lat).hexdigest()[:16]
+        return f"sol-{h}-grid{self.grid_level}-s{self.spin}"
+
+    @property
+    def cache_fingerprint(self) -> str:
+        """What the JAX package's signature of a cell does not hold: every
+        shell's exponents and coefficients and the k-points. The port's
+        cache checks it beside the signature, so a file written for
+        another basis or mesh of the same cell is not read."""
+        import hashlib
+        shells = str([(b.angmom,
+                       ["%.10e" % float(a) for a in np.asarray(b.alphas)],
+                       ["%.10e" % float(c) for c in np.asarray(b.coeffs)])
+                      for ab in self.atombases for b in ab.bases])
+        kp = np.round(np.asarray(self.kpts, dtype=np.float64), 10).tobytes()
+        return hashlib.sha256(shells.encode() + kp).hexdigest()[:16]
 
     def get_nuclei_energy(self):
         """The Ewald energy of the nuclei in a neutralising background."""

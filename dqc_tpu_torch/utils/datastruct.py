@@ -9,6 +9,7 @@ from dataclasses import dataclass
 from typing import Callable, Generic, List, Optional, Sequence, TypeVar, Union
 
 import numpy as np
+import torch
 
 T = TypeVar("T")
 
@@ -128,3 +129,51 @@ class DensityFitInfo:
     auxiliary basis, one entry per atom in the molecule's atom order."""
     method: str
     auxbases: List[AtomCGTOBasis]
+
+
+# the leaves of a calc's params (SCF_QCCalc._all_params) that vary from
+# member to member of a batch of geometries; every other leaf (the basis
+# exponents and coefficients, xc_params, fields) is shared
+BATCH_PATHS = (("basis", "atompos"), ("atomzs",))
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _put(tree, path, value):
+    """A copy of the dicts along `path` with the leaf there replaced."""
+    out = dict(tree)
+    out[path[0]] = (value if len(path) == 1
+                    else _put(tree[path[0]], path[1:], value))
+    return out
+
+
+def batch_params(params, atompos_b, atomzs_b=None):
+    """A batched params tree: `params` (a calc's _all_params()) with the
+    positions atompos_b (B, natom, 3) and the charges atomzs_b (B, natom)
+    (default: params' own for every member) on a leading member axis; the
+    other leaves are shared, with no batch axis."""
+    atompos_b = torch.as_tensor(atompos_b, dtype=params["atomzs"].dtype,
+                                device=params["atomzs"].device)
+    if atomzs_b is None:
+        atomzs_b = params["atomzs"].expand(atompos_b.shape[0], -1)
+    out = _put(params, ("basis", "atompos"), atompos_b)
+    return _put(out, ("atomzs",), torch.as_tensor(atomzs_b).to(atompos_b))
+
+
+def batch_size(params_b) -> int:
+    """The number of members of a batched params tree."""
+    return int(_get(params_b, BATCH_PATHS[0]).shape[0])
+
+
+def member_params(params_b, m: int):
+    """Member m of a batched params tree: its own positions and charges,
+    the shared leaves as they are (the same tensors, so a gradient in them
+    sums over the members)."""
+    out = params_b
+    for path in BATCH_PATHS:
+        out = _put(out, path, _get(params_b, path)[m])
+    return out

@@ -17,6 +17,11 @@ CUDA tensor, their plain versions on a CPU tensor; both are differentiable
 lapl/tau terms of the MGGA family, are plain torch on either device.
 vxc_matrix_ad is the brute-force oracle: autograd of exc_energy.
 
+A batch of geometries (parallel/batch.py) stacks the tables, (B, ng, nao)
+and (B, 3, ng, nao), with dm (B, [2,] nao, nao): densities come out (B,
+ng), energies (B,), V_xc (B, [2,] nao, nao), and K2/K3 take the batch in
+one launch each.
+
 Grid tables are built from the atom positions (Becke weights and point
 coordinates move with the atoms). On the CPU the grid axis is cut into
 chunks beyond XC_CHUNK_ELEMS; on the card the tables are whole already and
@@ -52,8 +57,11 @@ def _chunk_size(nao: int) -> int:
 
 
 def _default_chunk(grid_theta) -> int:
+    """The whole grid on the card or for a batch of tables, else chunks."""
     ao = grid_theta["ao"]
-    return ao.shape[0] if ao.is_cuda else _chunk_size(ao.shape[-1])
+    if ao.is_cuda or ao.ndim == 3:
+        return ao.shape[-2]
+    return _chunk_size(ao.shape[-1])
 
 
 def setup_grid_theta(meta, params, grid, family: int = 1):
@@ -111,20 +119,21 @@ def density_from_tables(tabs, dm, family: int, polarized: bool):
 
     def dens_of(dmi):
         if deriv == 0:
-            return {"rho": torch.einsum("gi,gi->g", ao @ dmi, ao)}
+            return {"rho": torch.einsum("...gi,...gi->...g", ao @ dmi, ao)}
         rho, gdot = hopper_xc.ds_dens_gga(ao, ag.contiguous(),
                                           dmi.contiguous())
         out = {"rho": rho, "grad": gdot}
         if deriv >= 2:
-            gb = torch.einsum("dgi,ij->dgj", ag, dmi)
-            t1 = torch.einsum("gi,gi->g", tabs["ao_lapl"] @ dmi, ao)
-            gg = torch.einsum("dgi,dgi->g", gb, ag)
+            gb = torch.einsum("...dgi,...ij->...dgj", ag, dmi)
+            t1 = torch.einsum("...gi,...gi->...g", tabs["ao_lapl"] @ dmi, ao)
+            gg = torch.einsum("...dgi,...dgi->...g", gb, ag)
             out["lapl"] = 2.0 * t1 + 2.0 * gg
             out["tau"] = 0.5 * gg
         return out
 
     if polarized:
-        return {"u": dens_of(dm[0]), "d": dens_of(dm[1])}
+        return {"u": dens_of(dm.select(-3, 0)),
+                "d": dens_of(dm.select(-3, 1))}
     return dens_of(dm)
 
 
@@ -144,10 +153,12 @@ def _edens_at(xc, dens, polarized: bool, xcparams=None):
         mask = (du["rho"] + dd["rho"]) > DENS_THRESHOLD
         kw = {}
         if fam >= 2:
-            kw["sigma_uu"] = _screen(mask, torch.sum(du["grad"] ** 2, dim=0))
+            kw["sigma_uu"] = _screen(mask,
+                                     torch.sum(du["grad"] ** 2, dim=-2))
             kw["sigma_ud"] = _screen(
-                mask, torch.sum(du["grad"] * dd["grad"], dim=0))
-            kw["sigma_dd"] = _screen(mask, torch.sum(dd["grad"] ** 2, dim=0))
+                mask, torch.sum(du["grad"] * dd["grad"], dim=-2))
+            kw["sigma_dd"] = _screen(mask,
+                                     torch.sum(dd["grad"] ** 2, dim=-2))
         if fam >= 4:
             kw.update(lapl_u=_screen(mask, du["lapl"]),
                       lapl_d=_screen(mask, dd["lapl"]),
@@ -163,7 +174,7 @@ def _edens_at(xc, dens, polarized: bool, xcparams=None):
         mask = dens["rho"] > DENS_THRESHOLD
         kw = {}
         if fam >= 2:
-            kw["sigma"] = _screen(mask, torch.sum(dens["grad"] ** 2, dim=0))
+            kw["sigma"] = _screen(mask, torch.sum(dens["grad"] ** 2, dim=-2))
         if fam >= 4:
             kw.update(lapl=_screen(mask, dens["lapl"]),
                       tau=_screen(mask, dens["tau"]))
@@ -184,7 +195,7 @@ def _vxc_assemble(vbar, tabs):
     ag = tabs.get("ao_grad")   # (3, ng, nao)
     vg = vbar.get("grad")
     if vg is None:
-        V = torch.einsum("gi,g,gj->ij", ao, vbar["rho"], ao)
+        V = torch.einsum("...gi,...g,...gj->...ij", ao, vbar["rho"], ao)
     else:
         # d(grad rho_d)/d dm_ij = 2 ag_dgi ao_gj (gdot = 2 <gb, ao>)
         V = hopper_xc.ds_vxc_gga(ao, ag.contiguous(),
@@ -192,11 +203,12 @@ def _vxc_assemble(vbar, tabs):
     vl = vbar.get("lapl")
     if vl is not None:
         # lapl = 2 t1 + 2 gg, t1 = <L dm, ao>, gg = <ag dm, ag>
-        V = V + 2.0 * torch.einsum("gi,g,gj->ij", tabs["ao_lapl"], vl, ao)
-        V = V + 2.0 * torch.einsum("dgi,g,dgj->ij", ag, vl, ag)
+        V = V + 2.0 * torch.einsum("...gi,...g,...gj->...ij",
+                                   tabs["ao_lapl"], vl, ao)
+        V = V + 2.0 * torch.einsum("...dgi,...g,...dgj->...ij", ag, vl, ag)
     vt = vbar.get("tau")
     if vt is not None:
-        V = V + 0.5 * torch.einsum("dgi,g,dgj->ij", ag, vt, ag)
+        V = V + 0.5 * torch.einsum("...dgi,...g,...dgj->...ij", ag, vt, ag)
     return V
 
 
@@ -261,9 +273,11 @@ def _pointwise_adjoints(xc, dens, w, polarized, xcparams):
         else:
             leaves, w = _detached_leaves(dens), w.detach()
             xcparams = _detached(xcparams)
-        exc = torch.sum(_edens_at(xc, leaves, polarized, xcparams) * w)
+        # per member of a batch: the sum over the grid axis
+        exc = torch.sum(_edens_at(xc, leaves, polarized, xcparams) * w,
+                        dim=-1)
         flat = _flat(leaves)
-        grads = torch.autograd.grad(exc, flat, allow_unused=True,
+        grads = torch.autograd.grad(exc.sum(), flat, allow_unused=True,
                                     create_graph=keep)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(flat, grads)]
@@ -277,7 +291,7 @@ def _exc_vxc_tabs(xc, dm, tabs, polarized: bool, xcparams):
                                     xcparams)
     if polarized:
         V = torch.stack([_vxc_assemble(vbar["u"], tabs),
-                         _vxc_assemble(vbar["d"], tabs)])
+                         _vxc_assemble(vbar["d"], tabs)], dim=-3)
     else:
         V = _vxc_assemble(vbar, tabs)
     return exc, V
@@ -291,14 +305,14 @@ def _tab_args(grid_theta):
 
 def exc_energy(xc, dm, grid_theta, polarized: bool, xcparams=None,
                chunk: int = None):
-    """E_xc = sum_g dvol_g e(r_g) over the precomputed AO tables;
-    differentiable in dm on the CPU."""
-    ng = grid_theta["dvol"].shape[0]
+    """E_xc = sum_g dvol_g e(r_g) over the precomputed AO tables ((B,) for
+    a batch); differentiable in dm."""
+    ng = grid_theta["dvol"].shape[-1]
 
     def body(tabs):
         dens = density_from_tables(tabs, dm, xc.family, polarized)
         return torch.sum(_edens_at(xc, dens, polarized, xcparams)
-                         * tabs["dvol"])
+                         * tabs["dvol"], dim=-1)
     args, axes = _tab_args(grid_theta)
     return map_reduce_blocks(body, args, ng,
                              chunk or _default_chunk(grid_theta), axes)
@@ -309,7 +323,7 @@ def exc_vxc(xc, dm, grid_theta, polarized: bool, xcparams=None,
     """(E_xc, V_xc), V_xc symmetrised: autograd runs only through the
     pointwise functional chain, never through the (ng, nao) table
     products."""
-    ng = grid_theta["dvol"].shape[0]
+    ng = grid_theta["dvol"].shape[-1]
     args, axes = _tab_args(grid_theta)
     exc, V = map_reduce_blocks(
         lambda tabs: _exc_vxc_tabs(xc, dm, tabs, polarized, xcparams),

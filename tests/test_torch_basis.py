@@ -211,8 +211,10 @@ def test_mol_probes_and_hooks_not_ported_yet():
     with pytest.raises(ValueError):
         dqt.Mol("Xx 0 0 0", device="cpu")
     m = dqt.Mol(H2O, basis="sto-3g", device="cpu")
-    with pytest.raises(NotImplementedError):
-        m.set_cache("x")
+    # the on-disk theta cache is ported: set_cache returns the molecule
+    assert m.set_cache("x") is m and m._cache_fname == "x"
+    assert m.cache_signature == dqc_tpu.Mol(H2O,
+                                            basis="sto-3g").cache_signature
     assert m.dfinfo is None
     assert m.densityfit() is m and m.dfinfo.method == "coulomb"
     assert m.setup_grid() is m.setup_grid()          # built once

@@ -561,3 +561,50 @@ def test_first_gradient_on_the_card_frees_its_calc():
                          capture_output=True, text=True, timeout=600)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "calc alive: False"
+
+
+@pytest.mark.parametrize("nb,n", [(3, 7), (2, 33), (2, 150)])
+def test_batched_k1_matches_plain_version_in_one_launch(nb, n):
+    """K1 with a batch axis (dm in shared memory at n <= 128, streamed
+    beside T above): each member within 1e-10 of the plain version, one
+    launch for the batch, the batch of one bit for bit the unbatched
+    call."""
+    _need_card()
+    T = torch.stack([(_eri_like(n, m) if n <= 33 else _card_like(n, m))
+                     for m in range(nb)])
+    dm = torch.as_tensor(np.random.default_rng(n).standard_normal(
+        (nb, n, n)), device="cuda")
+    before = hopper_jk.ds_jk.launches
+    out = hopper_jk.ds_jk(T, dm)
+    assert hopper_jk.ds_jk.launches == before + 1
+    ref = hopper_jk.ds_jk_reference(T, dm)
+    for a, r in zip(out, ref):
+        for m in range(nb):
+            assert float((a[m] - r[m]).abs().max()
+                         / r[m].abs().max()) <= 1e-10
+    one = hopper_jk.ds_jk(T[:1], dm[:1])
+    single = hopper_jk.ds_jk(T[0], dm[0])
+    assert all(torch.equal(x[0], y) for x, y in zip(one, single))
+
+
+@pytest.mark.parametrize("nb,ng,nao", [(3, 33, 7), (2, 700, 26),
+                                       (2, 3000, 300)])
+def test_batched_xc_kernels_match_plain_version_in_one_launch(nb, ng, nao):
+    _need_card()
+    rng = np.random.default_rng(ng)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device="cuda")
+    ao, ag, dm = t(nb, ng, nao), t(nb, 3, ng, nao), t(nb, nao, nao)
+    vr, vg = t(nb, ng), t(nb, 3, ng)
+    d0, v0 = hopper_xc.ds_dens_gga.launches, hopper_xc.ds_vxc_gga.launches
+    dens = hopper_xc.ds_dens_gga(ao, ag, dm)
+    v = hopper_xc.ds_vxc_gga(ao, ag, vr, vg)
+    assert hopper_xc.ds_dens_gga.launches == d0 + 1
+    assert hopper_xc.ds_vxc_gga.launches == v0 + 1
+    refs = hopper_xc.ds_dens_reference(ao, ag, dm) + (
+        hopper_xc.ds_vxc_reference(ao, ag, vr, vg),)
+    for a, r in zip(dens + (v,), refs):
+        for m in range(nb):
+            assert float((a[m] - r[m]).abs().max()
+                         / r[m].abs().max()) <= 1e-10

@@ -460,8 +460,9 @@ def test_kpoints_and_probes():
     with pytest.raises(ValueError, match="kpts"):
         dqt.Sol("He 0 0 0", np.eye(3) * 3.0, kpts=[0.0, 0.0, 0.0],
                 device="cpu")
-    with pytest.raises(NotImplementedError, match="A16"):
-        sol.set_cache("x")
+    # the on-disk theta cache is ported: set_cache returns the cell
+    assert sol.set_cache("x") is sol and sol._cache_fname == "x"
+    assert sol.cache_signature.startswith("sol-")
     assert sol.densityfit() is sol and sol.dfinfo is None
     assert sol.densityfit(method="gdf").dfinfo.method == "gdf"
     assert sol.densityfit(method="coulomb").dfinfo.method == "gdf"
