@@ -12,8 +12,8 @@ against JAX-CPU anchors: restricted Hartree-Fock and B3LYP Kohn-Sham on
 benzene/def2-SVP (nao = 114; grid level 2, 78,144 points) from the SAD
 start, and their forces; CAM-B3LYP (long-range exchange through K1 on the
 erf-attenuated ERI), SCAN (a meta-GGA) and a neural CustomXC with its
-parameter gradient on the same molecule; B3LYP on vitamin C/cc-pVDZ (nao =
-208, the dense route past nao 128); then the density-fitted route
+parameter gradient on the same molecule; B3LYP on vitamin C/def2-SVP (nao
+= 208, the dense route past nao 128); then the density-fitted route
 (`mol.densityfit()`, autoaux): B3LYP and CAM-B3LYP on benzene against
 JAX-CPU anchors, its forces, the reference's vitamin C workload (LDA), a
 benzene dimer (nao 228) whose dense ERI does not fit the dense route, and
@@ -41,7 +41,15 @@ the forces of a small k-point cell; and the batch axis
 CustomXC through one batched SCF (K1-K3 once per Fock build for the
 batch), its loss gradient, and K1-K3 with a batch axis against their plain
 versions; the on-disk theta cache (`Mol.set_cache`) and purification
-(`scf/purify.py`) on benzene. Any failed check or exception
+(`scf/purify.py`) on benzene; and a batch on every route: two H8 cells on
+the 3x3x3 mesh through one batched k-point SCF (K2 and K3 27 times per
+batched Fock build, each launch over strided views of both members'
+tables, and held there against their plain versions and against the call
+on a contiguous copy), two H8 cells at the Gamma point (PBE on the pair
+transforms, PBE0 on the periodic fit, the HF position gradient of their
+sum), and two benzene geometries on the blocked and streamed routes and by
+the variational solver, each member against its unbatched calc. Any
+failed check or exception
 ends the run with a non-zero exit code. Without a CUDA device it fails at once and
 prints no result.
 
@@ -102,14 +110,26 @@ Fock build, the loss gradient against central differences, members 0 and
 profiler, and K1-K3 at B = 1, 3, 8 against their plain versions with
 their B = 8 times), `cache_benzene` (two runs through set_cache: the parts
 loaded, theta_s, the energies and gradients bit for bit),
-`purify_benzene` (purification against eigh), `small`,
+`purify_benzene` (purification against eigh), `batch_kpbc` (B = 2
+H8 cells on the 3x3x3 mesh: stage seconds, iterations per member,
+launches per batched Fock build, a steady batched iteration under the
+profiler, the peak, member 0 against `pbc_k_h8_pbe` and member 1 against
+its unbatched energy_fn, and `kernel_checks_strided`/`kernels_strided`:
+K2/K3 on the members' tables at one k-point, a strided view, against the
+plain version and a contiguous copy, timed beside the bound and one
+PyTorch call), `batch_pbc_gamma` (two H8 cells: `pbe`, `pbe0_gdf` and
+`hf_gradient`), `batch_blocked`, `batch_stream` and `batch_variational`
+(two benzene geometries each; BFGS iterations and evaluations, launches
+per batched energy), `small`,
 `kernels` (K2's and K3's rows also have their times at H27's shape,
 `pbc_h27`, and at the k-point main path's embedded shape,
 `pbc_k_h8_embedded`; K3's row
 also has its registers and spills from this run's ptxas report; every row
 its launches on every path, K1's also on the erf tensor: each path's own
 SCF, with those of the atomic SCFs of its SAD start apart; and those inside
-the second- and third-order property calls and the variational SCFs), and
+the second- and third-order property calls and the variational SCFs, and
+per batched Fock build on each batch path; K2's and K3's rows their
+strided k-point view's check and time, `strided_kpoint_view`), and
 as the last
 line {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 
@@ -204,6 +224,8 @@ H -4.7222 -2.7845 0.8222; H -5.6716 -0.2763 2.8684;
 H -2.0785 -1.6104 -2.6430; H 0.0074 5.0941 1.2812;
 H -8.6971 -1.4445 0.0486; H 6.6186 -0.4860 -1.4846"""
 VITAMIN_C_NELEC = 92
+# the basis of the dense and blocked vitamin C phases (nao 208)
+VITC_BASIS = "def2-svp"
 # the density-fitted route (mol.densityfit(), the generated autoaux basis,
 # naux = 1308 for benzene): JAX-CPU values of dqc_tpu.KS(benzene/def2-svp,
 # grid=2, xc, SCFOptions(mixed=False)) after mol.densityfit(), same
@@ -1208,7 +1230,7 @@ PURIFY_GATE = 1e-10            # purified dm against eigh's
 
 def batched_kernel_checks(xc, theta_b, dm_b, smi_line):
     """K1, K2 and K3 with a leading batch axis at benzene's shapes on the
-    batch's own tensors (eri_k and grid tables of 8 geometries, their
+    batch's own tensors (eri_k and grid tables of BATCH geometries, their
     converged densities and potentials): at B = 1, 3, 8 against the plain
     version member by member (rel <= GATE_REL), one launch per call, two
     calls bit for bit, B = 1 bit for bit against the unbatched call; at B
@@ -1319,15 +1341,15 @@ def batch_loss(es, targets):
 
 
 def batch_nnxc(smi_line):
-    """The batch axis at full width: 8 benzene/def2-SVP geometries (seeded
-    0.02-Bohr displacements) with the nn_xc functional, tol 1e-10, through
-    parallel/batch.energy_batch: the MSE loss against seeded targets and
-    its gradient in xc_params only. Gates: members 0 and 7 within
-    BATCH_MEMBER_GATE_HA of the unbatched energy_fn at their geometries;
-    the loss gradient against central differences along two seeded
-    directions (NN_FD_GATE_REL); one launch each of K1, K2 and K3 per
-    batched Fock build, and the SCF's launches as its Fock builds give
-    them. Records the seconds of theta, the SCF and the backward,
+    """The batch axis at full width: BATCH benzene/def2-SVP geometries
+    (seeded 0.02-Bohr displacements) with the nn_xc functional, tol 1e-10,
+    through parallel/batch.energy_batch: the MSE loss against seeded
+    targets and its gradient in xc_params only. Gates: members 0 and
+    BATCH - 1 within BATCH_MEMBER_GATE_HA of the unbatched energy_fn at
+    their geometries; the loss gradient against central differences
+    along two seeded directions (NN_FD_GATE_REL); one launch each of K1,
+    K2 and K3 per batched Fock build, and the SCF's launches as its Fock
+    builds give them. Records the seconds of theta, the SCF and the backward,
     iterations per member, the peak, a steady batched iteration under the
     profiler, and the batched kernel checks."""
     from dqc_tpu_torch.convert import xc_params_from_numpy
@@ -1355,7 +1377,8 @@ def batch_nnxc(smi_line):
     st = {}
     reset_counts()
     t0 = time.perf_counter()
-    es = pbatch.energy_batch(calc, pb, st)
+    with batch_captured() as got:
+        es = pbatch.energy_batch(calc, pb, st)
     loss = batch_loss(es, targets)
     torch.cuda.synchronize()
     t1 = time.perf_counter()
@@ -1390,13 +1413,12 @@ def batch_nnxc(smi_line):
         fail(f"batch_nnxc: residuals {st['residual']} above tol")
     del es, loss, grads
 
-    # the stacked theta once more, without a graph: the central
-    # differences, the profile of a steady batched iteration and the
-    # batched kernel checks run on it
-    with torch.no_grad():
-        theta_b = pbatch.build_theta_batch(calc, batch_params(p0, pos_b))
-        dm_b = pbatch.solve_batch(calc, dict(theta_b, xc_params={
-            "nnxc": params})).contiguous()
+    # the stacked theta of the forward (no graph: only xc_params require
+    # grad, and they stay outside theta's tensors) and its converged
+    # states: the central differences, the profile of a steady batched
+    # iteration and the batched kernel checks run on them
+    theta_b, dm_b = got["theta"], got["dm"].contiguous()
+    del got
     eng = calc.engine
     reset_counts()
     with torch.no_grad():
@@ -1440,7 +1462,8 @@ def batch_nnxc(smi_line):
                            "seconds": time.perf_counter() - tf,
                            "gate_rel": NN_FD_GATE_REL}
 
-    # members 0 and 7 against the unbatched energy_fn at their geometries
+    # the first and last members against the unbatched energy_fn at their
+    # geometries
     members = {}
     for m in (0, BATCH - 1):
         tm = time.perf_counter()
@@ -1546,9 +1569,13 @@ def purify_benzene(calc, smi_line):
 
 
 def vitamin_c(smi_line):
-    """B3LYP on vitamin C/cc-pVDZ (nao = 208): the dense route past nao
-    128 (K1's streamed-dm plan, K2/K3 with two panels) on a real SCF."""
-    mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2)
+    """B3LYP on vitamin C/def2-SVP (nao = 208): the dense route past nao
+    128 (K1's streamed-dm plan, K2/K3 with two panels) on a real SCF.
+    cc-pVDZ gives the same nao, but its general contractions (the s
+    shells of C and O share their primitives) made the ERI build nine
+    tenths of the phase's time, and the blocked route's block build as
+    much again."""
+    mol = dq.Mol(VITAMIN_C, basis=VITC_BASIS, grid=2)
     retries = alloc_retries()
     _AUTO_BLOCKS.clear()
     calc, rec = ks_phase("vitamin_c", mol, "b3lyp", None, smi_line,
@@ -1742,7 +1769,8 @@ def df_forces(smi_line):
 def df_vitamin_c(smi_line, dense):
     """The reference's benchmark workload as benchmarks/vitamin_c.py runs it
     by default: vitamin C/cc-pVDZ, grid 2, densityfit(), lda_x+lda_c_pw;
-    df_s and the peak beside the dense vitamin_c phase's in this run."""
+    df_s and the peak beside the dense vitamin_c phase's in this run (in
+    VITC_BASIS, at the same nao)."""
     mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2).densityfit()
     calc, rec = ks_phase("df_vitamin_c", mol, "lda_x+lda_c_pw",
                          VITC_DF_ANCHOR_HA, smi_line,
@@ -1751,7 +1779,8 @@ def df_vitamin_c(smi_line, dense):
                energy_minus_harness_ha=rec["energy_ha"] - VITC_DF_HARNESS_HA,
                dense_phase_eri_dense_s=dense["eri_dense_s"],
                dense_phase_peak_device_bytes=dense["peak_device_bytes"],
-               dense_phase_xc="b3lyp", gate_ha=VITC_DF_GATE_HA,
+               dense_phase_xc="b3lyp", dense_phase_basis=VITC_BASIS,
+               gate_ha=VITC_DF_GATE_HA,
                parts=route_parts(calc, smi_line))
     emit({"df_vitamin_c": rec})
     return rec
@@ -2027,11 +2056,11 @@ def stream_b3lyp(smi_line, dense):
 
 
 def blocked_vitamin_c(smi_line, dense):
-    """Vitamin C/cc-pVDZ B3LYP on the blocked route (the dense limit set to
-    0), against the dense vitamin_c phase of this run: the energy, tr(D S);
-    the block build's seconds beside eri_dense's, the peaks, the
+    """Vitamin C/def2-SVP B3LYP on the blocked route (the dense limit set
+    to 0), against the dense vitamin_c phase of this run: the energy, tr(D
+    S); the block build's seconds beside eri_dense's, the peaks, the
     allocator's retries and the bra blocks coulomb_contract chose."""
-    mol = dq.Mol(VITAMIN_C, basis="cc-pvdz", grid=2)
+    mol = dq.Mol(VITAMIN_C, basis=VITC_BASIS, grid=2)
     retries = alloc_retries()
     _AUTO_BLOCKS.clear()
     with route_limits(dense=0):
@@ -3269,6 +3298,433 @@ def pbc_k_forces(smi_line):
     return out
 
 
+# --- the batch on every route (parallel/batch.energy_batch) -----------------
+
+BATCH_GAMMA = 2                  # H8 cells of batch_pbc_gamma
+BATCH_PAIR = 2                   # members of the other route batches
+BATCH_VAR_GATE_HA = 1e-9         # streamed and variational members
+BATCH_GRAD_GATE_REL = 1e-9       # the Gamma batch's position gradient
+
+
+@contextmanager
+def batch_captured():
+    """parallel/batch's build_theta_batch and solve_batch recording what
+    they return while energy_batch runs inside (the stacked theta and the
+    members' converged states, for the checks after it)."""
+    from dqc_tpu_torch.parallel import batch as pbatch
+    got = {}
+    build, solve = pbatch.build_theta_batch, pbatch.solve_batch
+
+    def keep_theta(*args, **kwargs):
+        got["theta"] = build(*args, **kwargs)
+        return got["theta"]
+
+    def keep_dm(*args, **kwargs):
+        got["dm"] = solve(*args, **kwargs)
+        return got["dm"]
+    pbatch.build_theta_batch, pbatch.solve_batch = keep_theta, keep_dm
+    try:
+        yield got
+    finally:
+        pbatch.build_theta_batch, pbatch.solve_batch = build, solve
+
+
+def batch_positions(pos0, nb, seed, first_undisplaced=False):
+    """nb members' positions: pos0 plus BATCH_SIGMA_BOHR of seeded noise
+    each (member 0 at pos0 itself with first_undisplaced)."""
+    rng = np.random.default_rng(seed)
+    pos = pos0 + BATCH_SIGMA_BOHR * rng.standard_normal((nb,) + pos0.shape)
+    if first_undisplaced:
+        pos[0] = pos0
+    return pos
+
+
+def batch_route_phase(name, calc, pos_b, smi_line, refs=None,
+                      gate=BATCH_MEMBER_GATE_HA, per_build=None,
+                      profile=True):
+    """One batched path from the calc to the members' energies: the launch
+    counts set to 0 just before energy_batch and read just after; then on
+    the stacked theta and states it produced one batched Fock build's
+    launches (against per_build, each kernel once for all members: one
+    per k-point and spin on the k-point engine), and a steady batched
+    iteration under the profiler. Each member m against refs[m] where
+    given (an energy of this run), else against the unbatched energy_fn at
+    its geometry on the same route (its own theta, built by the calc's
+    _build_theta from the member's params), within gate. The
+    residuals are gated at tol on the DIIS routes (the variational
+    solver's stop is its gradient). Returns (record, theta_b, dm_b)."""
+    from dqc_tpu_torch.parallel import batch as pbatch
+    from dqc_tpu_torch.utils.datastruct import batch_params, member_params
+    pb = batch_params(calc._all_params(), pos_b)
+    torch.cuda.synchronize()
+    free_device()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    reset_counts()
+    t0 = time.perf_counter()
+    with batch_captured() as got, torch.no_grad():
+        es = pbatch.energy_batch(calc, pb, st)
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    launches, launches_sad = path_counts(), sad_counts()
+    peak = torch.cuda.max_memory_allocated()
+    theta_b, dm_b = got["theta"], got["dm"]
+    es_np = es.cpu().numpy()
+    eng = calc.engine
+    reset_counts()
+    with torch.no_grad():
+        eng.fock(dm_b, theta_b)
+    build = path_counts()
+    rec = {"batch": len(pos_b), "route": calc.jk_mode,
+           "method": calc.opts.method, "energies_ha": es_np.tolist(),
+           "theta_s": st["theta_s"], "scf_s": st["scf_s"],
+           "total_s": total_s, "iterations": st["iterations"],
+           "residual": st["residual"], "tol": calc.opts.tol,
+           "launches": launches, "launches_sad": launches_sad,
+           "launches_per_fock_build": build, "peak_device_bytes": peak,
+           "sigma_bohr": BATCH_SIGMA_BOHR, "card": smi_line}
+    for key in ("jk_blocks_bytes_batch", "ri_iterations",
+                "dual_inner_iterations", "exact_jk", "var_evaluations",
+                "var_status", "var_grad_max_abs"):
+        if key in st:
+            rec[key] = st[key]
+    if profile:
+        rec["iteration_profile"] = iteration_profile(eng, theta_b, dm_b,
+                                                     smi_line)
+    if not np.all(np.isfinite(es_np)) or es_np.shape != (len(pos_b),):
+        fail(f"{name}: energies {es_np}")
+    if (calc.opts.method == "diis"
+            and not max(st["residual"]) <= calc.opts.tol):
+        fail(f"{name}: residuals {st['residual']} above tol")
+    if per_build is not None and build != per_build:
+        fail(f"{name}: one batched Fock build launched {build}, expected "
+             f"{per_build}")
+    members = {}
+    for m in range(len(pos_b)):
+        tm = time.perf_counter()
+        if refs is not None and refs[m] is not None:
+            em, how = refs[m], "this run's unbatched phase"
+        else:
+            with torch.no_grad():
+                em = float(calc.energy_fn(member_params(pb, m)))
+            how = "unbatched energy_fn"
+        members[str(m)] = {"unbatched_ha": em, "batched_ha": float(es_np[m]),
+                           "diff_ha": float(es_np[m]) - em, "against": how,
+                           "seconds": time.perf_counter() - tm}
+    rec["members_vs_unbatched"] = members
+    rec["member_gate_ha"] = gate
+    for m, r in members.items():
+        if not abs(r["diff_ha"]) <= gate:
+            fail(f"{name}: member {m} {r['batched_ha']!r} vs unbatched "
+                 f"{r['unbatched_ha']!r} (gate {gate})")
+    return rec, theta_b, dm_b
+
+
+def batched_kernel_checks_strided(eng, theta_b, dm_b, k, smi_line):
+    """K2 and K3 on the members' tables at k-point k of a batch of k-point
+    cells: views of (B, nk, ng, 2 nao) whose member stride is nk ng 2 nao,
+    read in place. Against the plain version member by member (rel <=
+    GATE_REL), against the same call on a contiguous copy (bit for bit),
+    one launch per call, repeats bit for bit; the time beside the plain
+    version's (the member loop), one batched PyTorch call's and the
+    bound."""
+    grid = theta_b["grid"]
+    ao, ag = grid["ao"][:, k], grid["ao_grad"][:, k]
+    nb, ng, m2 = ao.shape
+    with torch.no_grad():
+        dmc = kpbc.join(dm_b, True)
+        memb = kpbc._embed(dmc, theta_b["wk"])[:, k].contiguous()
+        dens = eng._dens(dmc, theta_b)
+        _, vbar = integrate._pointwise_adjoints(eng.xc, dens, grid["dvol"],
+                                                False, None)
+    vr, vg = vbar["rho"].contiguous(), vbar["grad"].contiguous()
+    aoc, agc = ao.contiguous(), ag.contiguous()
+    recs = []
+    for name, kern, plain, args, argsc in (
+            ("ds_dens_gga", ds_dens_gga, ds_dens_reference, (ao, ag, memb),
+             (aoc, agc, memb)),
+            ("ds_vxc_gga", ds_vxc_gga, ds_vxc_reference, (ao, ag, vr, vg),
+             (aoc, agc, vr, vg))):
+        before = _launch_counts()[name]
+        o1 = kern(*args)
+        n1 = _launch_counts()[name] - before
+        o2, oc, ref = kern(*args), kern(*argsc), plain(*args)
+        torch.cuda.synchronize()
+        o1, o2, oc, ref = (x if isinstance(x, tuple) else (x,)
+                           for x in (o1, o2, oc, ref))
+        rec = {"kernel": name, "batch": nb, "k": k, "ng": ng,
+               "nao_embedded": m2, "member_stride": ao.stride(0),
+               "launches_per_call": n1, "max_abs_err": 0.0,
+               "max_rel_err": 0.0,
+               "bit_identical_to_contiguous": all(
+                   torch.equal(x, y) for x, y in zip(o1, oc)),
+               "bit_identical_repeat": all(
+                   torch.equal(x, y) for x, y in zip(o1, o2))}
+        for x, r in zip(o1, ref):
+            scale = r.abs().amax(dim=tuple(range(1, r.ndim)))
+            err = (x - r).abs().amax(dim=tuple(range(1, r.ndim)))
+            rec["max_abs_err"] = max(rec["max_abs_err"], float(err.max()))
+            rec["max_rel_err"] = max(rec["max_rel_err"],
+                                     float((err / scale).max()))
+        recs.append(rec)
+        if not rec["max_rel_err"] <= GATE_REL:
+            fail(f"strided {name}: rel err {rec['max_rel_err']:.3e}")
+        if not rec["bit_identical_to_contiguous"]:
+            fail(f"strided {name}: differs from the call on a contiguous "
+                 "copy")
+        if not rec["bit_identical_repeat"]:
+            fail(f"strided {name}: two calls differ")
+        if n1 != 1:
+            fail(f"strided {name}: {n1} launches per call")
+
+    def k2_library():
+        c = ao @ memb.mT
+        (c * ao).sum(-1)
+        2.0 * (ag * c[:, None]).sum(-1)
+
+    def k3_library():
+        w = vr[..., None] * ao + 2.0 * torch.einsum("bdg,bdgi->bgi", vg, ag)
+        w.mT @ ao
+    nbytes = 8 * nb * (4 * ng * m2 + m2 * m2 + 4 * ng)
+    flops = nb * (2 * ng * m2 * m2 + 8 * ng * m2)
+    timing = {}
+    for name, kern, plain, args, lib in (
+            ("ds_dens_gga", ds_dens_gga, ds_dens_reference, (ao, ag, memb),
+             k2_library),
+            ("ds_vxc_gga", ds_vxc_gga, ds_vxc_reference, (ao, ag, vr, vg),
+             k3_library)):
+        ms, pl = time_turns(lambda: kern(*args), lambda: plain(*args))
+        bms, by = bound(nbytes, flops)
+        chk = next(r for r in recs if r["kernel"] == name)
+        timing[name] = {"batch": nb, "k": k, "ng": ng, "nao_embedded": m2,
+                        "member_stride": ao.stride(0),
+                        "max_abs_err": chk["max_abs_err"],
+                        "max_rel_err": chk["max_rel_err"],
+                        "bit_identical_to_contiguous":
+                            chk["bit_identical_to_contiguous"],
+                        "ms": min(ms),
+                        "ms_runs": ms, "plain_ms": min(pl),
+                        "plain_ms_runs": pl, "library_ms": time_ms(lib, 20),
+                        "bytes_moved": nbytes, "flops": flops,
+                        "bound_ms": bms, "bound_by": by,
+                        "bound_share": bms / min(ms), "card": smi_line}
+    return recs, timing
+
+
+def batch_kpbc(smi_line, k_main):
+    """This slice's main path at full width: RKS-PBE of H8 (3-21G, "sg2")
+    on the Gamma-centred 3x3x3 mesh (27 k-points, (195,894, 32) embedded
+    tables), B = 2 cells through one batched SCF: member 0 the undisplaced
+    cell, held to pbc_k_h8_pbe's energy of this run; member 1 displaced by
+    BATCH_SIGMA_BOHR (seeded), held to its unbatched energy_fn. K2 and K3
+    27 times each per batched Fock build (one launch per k-point for both
+    members, on strided views of their tables), and the SCF's launches as
+    its Fock builds give them. Records the seconds of theta and the SCF,
+    iterations per member, a steady batched iteration under the profiler,
+    the peak, and K2/K3 on the strided view at k = (1,1,1)/3."""
+    mesh = mp_mesh(K_MAIN_MESH, 2 * PBC_A)
+    sol = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                 grid="sg2", kpts=mesh)
+    calc = dq.KS(sol, xc="pbe")
+    nk = len(mesh)
+    pos_b = batch_positions(sol.atompos.detach().cpu().numpy(), BATCH_PAIR,
+                            BATCH_SEED + 3, first_undisplaced=True)
+    per_build = {"ds_jk": 0, "ds_dens_gga": nk, "ds_vxc_gga": nk,
+                 "ds_jk_eri_lr": 0}
+    rec, theta_b, dm_b = batch_route_phase(
+        "batch_kpbc", calc, pos_b, smi_line,
+        refs=[k_main["energy_ha"], None], per_build=per_build)
+    builds = max(rec["iterations"]) + 1
+    want = {"ds_jk": 0, "ds_dens_gga": nk * (builds + 1),
+            "ds_vxc_gga": nk * builds, "ds_jk_eri_lr": 0}
+    rec.update(system="H8", basis="3-21g", grid="sg2", xc="pbe", nk=nk,
+               fock_builds=builds,
+               reckoned_theta_bytes_per_member=16.4e9,
+               theta_bytes=sum(t.numel() * t.element_size() for t in
+                               _tensors_of(theta_b)))
+    checks, timing = batched_kernel_checks_strided(calc.engine, theta_b,
+                                                   dm_b, 13, smi_line)
+    rec.update(kernel_checks_strided=checks, kernels_strided=timing)
+    emit({"batch_kpbc": rec})
+    if rec["launches"] != want:
+        fail(f"batch_kpbc: the batched SCF launched {rec['launches']} for "
+             f"{builds} Fock builds and the energies, expected {want}")
+    del theta_b, dm_b
+    return rec
+
+
+def _tensors_of(tree):
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _tensors_of(v)]
+    return []
+
+
+def batch_pbc_gamma(smi_line):
+    """BATCH_GAMMA displaced H8 cells at the Gamma point (3-21G, "sg2",
+    seeded BATCH_SIGMA_BOHR displacements) through one batched SCF each:
+    RKS-PBE on the pair-transform route and PBE0 on the periodic fit,
+    every member held to its unbatched energy_fn, which builds its own
+    theta; K2 and K3 once per batched Fock build. The position gradient
+    of the HF energies' sum (pair transforms, exact exchange with its
+    Madelung term; tol 1e-11) held to the members' energy_grad
+    (BATCH_GRAD_GATE_REL)."""
+    from dqc_tpu_torch.parallel import batch as pbatch
+    from dqc_tpu_torch.utils.datastruct import batch_params, member_params
+
+    def sol(gdf=False):
+        s = dq.Sol(h_supercell(2), np.eye(3) * 2 * PBC_A, basis="3-21g",
+                   grid="sg2")
+        return s.densityfit(method="gdf") if gdf else s
+    pos0 = sol().atompos.detach().cpu().numpy()
+    pos_b = batch_positions(pos0, BATCH_GAMMA, BATCH_SEED + 4)
+    per_build = {"ds_jk": 0, "ds_dens_gga": 1, "ds_vxc_gga": 1,
+                 "ds_jk_eri_lr": 0}
+    out = {}
+    for key, xc, gdf in (("pbe", "pbe", False), ("pbe0_gdf", "pbe0", True)):
+        cell = sol(gdf)
+        calc = dq.KS(cell, xc=xc)
+        rec, theta_b, dm_b = batch_route_phase(
+            f"batch_pbc_gamma[{key}]", calc, pos_b, smi_line,
+            per_build=per_build)
+        builds = max(rec["iterations"]) + 1
+        want = {"ds_jk": 0, "ds_dens_gga": builds + 1,
+                "ds_vxc_gga": builds, "ds_jk_eri_lr": 0}
+        rec.update(xc=xc, fock_builds=builds)
+        del theta_b, dm_b
+        if rec["launches"] != want:
+            fail(f"batch_pbc_gamma[{key}]: launched {rec['launches']} for "
+                 f"{builds} Fock builds and the energies, expected {want}")
+        out[key] = rec
+        del calc
+        free_device()
+    # the position gradient of the summed HF energies
+    calc = dq.HF(sol(), opts=dq.SCFOptions(tol=1e-11))
+    pb = batch_params(calc._all_params(), pos_b)
+    x = pb["basis"]["atompos"].clone().requires_grad_(True)
+    pb["basis"] = dict(pb["basis"], atompos=x)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    st = {}
+    t0 = time.perf_counter()
+    (g,) = torch.autograd.grad(pbatch.energy_batch(calc, pb, st).sum(), x)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated()
+    ref = torch.stack([calc.energy_grad(member_params(pb, m))["basis"][
+        "atompos"] for m in range(BATCH_GAMMA)])
+    t2 = time.perf_counter()
+    rel = float((g - ref).abs().max() / ref.abs().max())
+    out["hf_gradient"] = {
+        "batch": BATCH_GAMMA, "xc": None, "tol": 1e-11,
+        "max_abs_grad": float(ref.abs().max()), "rel_err_vs_members": rel,
+        "gate_rel": BATCH_GRAD_GATE_REL, "batch_grad_s": t1 - t0,
+        "members_grad_s": t2 - t1, "gmres": st["gmres"],
+        "iterations": st["iterations"], "peak_device_bytes": peak,
+        "card": smi_line}
+    emit({"batch_pbc_gamma": out})
+    if not rel <= BATCH_GRAD_GATE_REL:
+        fail(f"batch_pbc_gamma: the batch's position gradient is {rel:.3e} "
+             "from the members' energy_grad")
+    return out
+
+
+def batch_molecule(name, smi_line, limits, e0, xc="b3lyp", opts=None,
+                   gate=BATCH_MEMBER_GATE_HA, per_build=None):
+    """Two benzene/def2-SVP geometries through one batched SCF on the route
+    that `limits` (route_limits' keywords) gives: member 0 the main path's
+    geometry, held to e0, the unbatched energy of this run's phase on the
+    same route and solver; member 1 displaced by BATCH_SIGMA_BOHR (seeded),
+    held to its unbatched energy_fn. Returns (calc, record, stacked theta,
+    states)."""
+    mol = dq.Mol(benzene_desc(), basis="def2-svp", grid=2)
+    with route_limits(**limits):
+        calc = dq.KS(mol, xc=xc, opts=opts)
+        pos_b = batch_positions(mol.atompos.detach().cpu().numpy(),
+                                BATCH_PAIR, BATCH_SEED + 5,
+                                first_undisplaced=True)
+        rec, theta_b, dm_b = batch_route_phase(
+            name, calc, pos_b, smi_line, refs=[e0, None], gate=gate,
+            per_build=per_build,
+            profile=calc.opts.method == "diis" and calc.jk_mode != "stream")
+    rec.update(system="benzene", basis="def2-svp", grid=2, xc=xc,
+               limits=limits)
+    return calc, rec, theta_b, dm_b
+
+
+def batch_blocked(smi_line, blocked_rec):
+    """batch_molecule on the blocked route (the dense limit 0; member 0
+    held to blocked_b3lyp): the stack holds both members' quartet blocks;
+    K2 and K3 once per batched Fock build, no K1 outside the SAD atoms."""
+    per_build = {"ds_jk": 0, "ds_dens_gga": 1, "ds_vxc_gga": 1,
+                 "ds_jk_eri_lr": 0}
+    _, rec, _, _ = batch_molecule("batch_blocked", smi_line, {"dense": 0},
+                                  blocked_rec["energy_ha"],
+                                  per_build=per_build)
+    builds = max(rec["iterations"]) + 1
+    want = dict(per_build, ds_dens_gga=builds + 1, ds_vxc_gga=builds)
+    rec["fock_builds"] = builds
+    emit({"batch_blocked": rec})
+    if rec["route"] != "blocked":
+        fail(f"batch_blocked: route {rec['route']!r}")
+    if rec["launches"] != want:
+        fail(f"batch_blocked: launched {rec['launches']} for {builds} Fock "
+             f"builds and the energies, expected {want}")
+    return rec
+
+
+def batch_stream(smi_line, stream_rec):
+    """batch_molecule on the streamed route (both limits 0; member 0 held
+    to stream_b3lyp): the batched RI phase, then one exact streamed build
+    per running member per outer cycle, stops per member; members within
+    BATCH_VAR_GATE_HA of the unbatched streamed SCF."""
+    per_build = {"ds_jk": 0, "ds_dens_gga": 1, "ds_vxc_gga": 1,
+                 "ds_jk_eri_lr": 0}
+    _, rec, _, _ = batch_molecule("batch_stream", smi_line,
+                                  {"dense": 0, "blocked": 0},
+                                  stream_rec["energy_ha"],
+                                  gate=BATCH_VAR_GATE_HA,
+                                  per_build=per_build)
+    emit({"batch_stream": rec})
+    if rec["route"] != "stream":
+        fail(f"batch_stream: route {rec['route']!r}")
+    if rec["launches"]["ds_jk"] != 0 or not all(
+            r["builds"] >= 1 for r in rec["exact_jk"]):
+        fail(f"batch_stream: launches {rec['launches']}, exact builds "
+             f"{rec['exact_jk']}")
+    return rec
+
+
+def batch_variational(smi_line, var_rec):
+    """Two benzene B3LYP geometries by the variational solver ("ov"): one
+    BFGS over both members' parameters, the sum of their energies from one
+    batched evaluation each call (K1 once for both members), each member
+    within BATCH_VAR_GATE_HA of its unbatched variational energy (member 0
+    of variational_benzene's). Records
+    BFGS iterations and evaluations, and K1 launches per evaluation."""
+    opts = dq.SCFOptions(method="variational", orb_param="ov")
+    calc, rec, theta_b, dm_b = batch_molecule(
+        "batch_variational", smi_line, {}, var_rec["energy_ha"],
+        opts=opts, gate=BATCH_VAR_GATE_HA)
+    evals = rec["var_evaluations"]
+    # one batched energy, the function BFGS evaluates, on the stacked theta
+    # at the members' converged states
+    reset_counts()
+    with torch.no_grad():
+        calc.engine.energy(dm_b, theta_b)
+    per_eval = path_counts()
+    del theta_b, dm_b
+    rec.update(bfgs_iterations=rec["iterations"], evaluations=evals,
+               launches_per_evaluation=per_eval,
+               k1_launches_per_evaluation_in_scf=(
+                   rec["launches"]["ds_jk"] / max(evals, 1)))
+    emit({"batch_variational": rec})
+    if per_eval["ds_jk"] != 1:
+        fail(f"batch_variational: one batched energy launched {per_eval}")
+    return rec
+
+
 def main():
     t_start = time.perf_counter()
     # 1. device
@@ -3680,7 +4136,7 @@ def main():
     free_device()
     nn_rec = nn_xc(smi_line)
     free_device()
-    # the batch axis: 8 geometries of benzene through one batched SCF (one
+    # the batch axis: 4 geometries of benzene through one batched SCF (one
     # launch of each kernel per Fock build), the NN loss and its gradient;
     # the on-disk theta cache
     batch_rec = batch_nnxc(smi_line)
@@ -3740,6 +4196,22 @@ def main():
     free_device()
     k_force = pbc_k_forces(smi_line)
     free_device()
+    # 16. a batch on every route: B = 2 k-point cells at the k-point main
+    # path's width (K2/K3 27 times per batched Fock build, on strided views
+    # of the members' tables), four H8 cells at Gamma (pair transforms and
+    # the periodic fit, and the position gradient of their sum), two
+    # benzene geometries on the blocked and streamed routes and by the
+    # variational solver
+    batch_k = batch_kpbc(smi_line, k_main)
+    free_device()
+    batch_g = batch_pbc_gamma(smi_line)
+    free_device()
+    batch_blk = batch_blocked(smi_line, blocked_rec)
+    free_device()
+    batch_str = batch_stream(smi_line, stream_rec)
+    free_device()
+    batch_var = batch_variational(smi_line, var_rec)
+    free_device()
     by_path = {"main_path_hf": hf_launches, "main_path_ks": ks_launches,
                "forces_gradient": force_rec["launches_in_gradient"],
                "cam_b3lyp": cam_rec["launches"],
@@ -3775,7 +4247,13 @@ def main():
                **{ph: r["launches"] for ph, r in k3_recs.items()},
                "pbc_k_h8_pbe0_222": k222["launches"],
                **{f"pbc_k_forces_gradient[{k}]": r["launches_in_gradient"]
-                  for k, r in k_force.items()}}
+                  for k, r in k_force.items()},
+               "batch_kpbc": batch_k["launches"],
+               "batch_pbc_gamma[pbe]": batch_g["pbe"]["launches"],
+               "batch_pbc_gamma[pbe0_gdf]": batch_g["pbe0_gdf"]["launches"],
+               "batch_blocked": batch_blk["launches"],
+               "batch_stream": batch_str["launches"],
+               "batch_variational": batch_var["launches"]}
 
     sad_by_path = {"main_path_hf": hf_sad, "main_path_ks": ks_sad,
                    "cam_b3lyp": cam_rec["launches_sad"],
@@ -3791,10 +4269,28 @@ def main():
                    "blocked_b3lyp": blocked_rec["launches_sad"],
                    "stream_b3lyp": stream_rec["launches_sad"],
                    "blocked_vitamin_c": blocked_vitc_rec["launches_sad"],
-                   "blocked_beyond_dense": bbd_rec["launches_sad"]}
+                   "blocked_beyond_dense": bbd_rec["launches_sad"],
+                   "batch_blocked": batch_blk["launches_sad"],
+                   "batch_stream": batch_str["launches_sad"],
+                   "batch_variational": batch_var["launches_sad"]}
 
     def launches_of(name, paths=by_path):
         return {path: c.get(name, 0) for path, c in paths.items()}
+
+    batch_recs = {"batch_kpbc": batch_k,
+                  "batch_pbc_gamma[pbe]": batch_g["pbe"],
+                  "batch_pbc_gamma[pbe0_gdf]": batch_g["pbe0_gdf"],
+                  "batch_blocked": batch_blk, "batch_stream": batch_str,
+                  "batch_variational": batch_var}
+
+    def batch_routes(name):
+        """Launches per batched Fock build on each batch-route path (per
+        batched energy for the variational solver's)."""
+        out = {path: r["launches_per_fock_build"][name]
+               for path, r in batch_recs.items()}
+        out["batch_variational_per_evaluation"] = \
+            batch_var["launches_per_evaluation"][name]
+        return out
 
     # launches inside the property calls: second-order (Hessians,
     # polarizabilities, IR's mixed derivative, the orbital Hessian), third
@@ -3856,6 +4352,7 @@ def main():
         "plain_ms_runs_hf_phase": k1_hf["plain_ms_runs"],
         "gate_rel": GATE_REL, "checks": checks,
         "gbytes_per_s": k1_hf["bytes_moved"] / (min(k1_ms) * 1e-3) / 1e9,
+        "launches_per_batched_fock_build": batch_routes("ds_jk"),
         "batched": dict(batch_rec["kernels"]["ds_jk"],
                         launches_per_fock_build=batch_rec[
                             "launches_per_fock_build"]["ds_jk"],
@@ -3886,6 +4383,8 @@ def main():
         "gflop_per_s": k2_flops / (min(k2_ms) * 1e-3) / 1e9,
         "pbc_h27": h27_rec["kernels"]["ds_dens_gga"],
         "pbc_k_h8_embedded": k_main["kernels"]["ds_dens_gga"],
+        "strided_kpoint_view": batch_k["kernels_strided"]["ds_dens_gga"],
+        "launches_per_batched_fock_build": batch_routes("ds_dens_gga"),
         "batched": dict(batch_rec["kernels"]["ds_dens_gga"],
                         launches_per_fock_build=batch_rec[
                             "launches_per_fock_build"]["ds_dens_gga"],
@@ -3916,6 +4415,8 @@ def main():
         "resources": ptxas_summary(builds["ds_vxc_gga"]["log"]),
         "pbc_h27": h27_rec["kernels"]["ds_vxc_gga"],
         "pbc_k_h8_embedded": k_main["kernels"]["ds_vxc_gga"],
+        "strided_kpoint_view": batch_k["kernels_strided"]["ds_vxc_gga"],
+        "launches_per_batched_fock_build": batch_routes("ds_vxc_gga"),
         "batched": dict(batch_rec["kernels"]["ds_vxc_gga"],
                         launches_per_fock_build=batch_rec[
                             "launches_per_fock_build"]["ds_vxc_gga"],

@@ -18,7 +18,12 @@ kernels computes): the member is a grid axis, each member keeps its own
 blocks, panels and partials, and K3's fold stays per member and in order.
 The launch plans spread the batch over the card's multiprocessors
 (`sms // B` blocks per member). An unbatched call is the batch of one and
-gives the bits it always gave.
+gives the bits it always gave. A batch's members may lie at any member
+stride, 0 included, so long as each member's block is contiguous: the
+kernels take each tensor's own stride(0). The members' tables of one
+k-point of a batch of k-point cells, grid["ao"][:, k] of (B, nk, ng, 2 nao),
+are such a view, read in place (a copy would move 200 MB per k-point at
+the k-point main path's shape).
 
 The kernels are csrc/ds_dens_gga.cu and csrc/ds_vxc_gga.cu (CUDA C++ for
 sm_90a; their headers say what bounds them and how they are laid out).
@@ -110,7 +115,17 @@ def _check_tables(ao, ao_grad, name):
     return lead, ng, nao
 
 
-def _check_common(name, tensors):
+def kernel_layout(t, batched: bool) -> bool:
+    """Whether the kernels read t as it lies: contiguous, or for a batch
+    each member's block contiguous (t[0]) at any member stride, 0 included,
+    which the launch passes as stride(0)."""
+    return t[0].is_contiguous() if batched else t.is_contiguous()
+
+
+def _check_common(name, tensors, batched):
+    """Whether the kernel runs (a CUDA tensor; False on the CPU). On the
+    card every tensor must have a layout the kernels read (kernel_layout);
+    any other raises: nothing is copied."""
     dev = tensors[0].device
     for t in tensors:
         if t.dtype != torch.float64:
@@ -121,8 +136,12 @@ def _check_common(name, tensors):
         return False
     if dev.type != "cuda":
         raise RuntimeError(f"{name} has no kernel for device {dev}")
-    if not all(t.is_contiguous() for t in tensors):
-        raise ValueError(f"{name} needs contiguous tensors on the card")
+    for t in tensors:
+        if not kernel_layout(t, batched):
+            raise ValueError(
+                f"{name} on the card needs contiguous tensors, or for a "
+                "batch each member's block contiguous at any member stride; "
+                f"got shape {tuple(t.shape)} with strides {t.stride()}")
     return True
 
 
@@ -210,8 +229,9 @@ def ds_dens_gga(ao, ao_grad, dm):
     gdot (B, 3, ng), one launch.
 
     CPU tensors: the plain version. CUDA tensors: the kernel; every tensor
-    must be contiguous. Differentiable on both. Raises on anything the
-    kernel does not take and on a failed build or launch."""
+    contiguous, or for a batch each member's block (any member stride).
+    Differentiable on both. Raises on anything the kernel does not take
+    and on a failed build or launch."""
     lead, ng, nao = _check_tables(ao, ao_grad, "ds_dens_gga")
     if tuple(dm.shape) != lead + (nao, nao):
         raise ValueError(f"ds_dens_gga: dm must be {lead + (nao, nao)}, got "
@@ -220,10 +240,13 @@ def ds_dens_gga(ao, ao_grad, dm):
 
 
 def _dens_forward(ao, ao_grad, dm):
-    if not _check_common("ds_dens_gga", (ao, ao_grad, dm)):
-        return ds_dens_reference(ao, ao_grad, dm)
     lead, (ng, nao) = tuple(ao.shape[:-2]), tuple(ao.shape[-2:])
+    if not _check_common("ds_dens_gga", (ao, ao_grad, dm), bool(lead)):
+        return ds_dens_reference(ao, ao_grad, dm)
     batch = lead[0] if lead else 1
+    # member strides in doubles (unused by a batch of one)
+    strides = ((ao.stride(0), ao_grad.stride(0), dm.stride(0)) if lead
+               else (ng * nao, 3 * ng * nao, nao * nao))
     lib = _nvcc.load("ds_dens_gga", _DENS_SYMBOLS)
     plan = _dens_launch_plan(ng, nao, batch, ao.device.index)
     with torch.cuda.device(ao.device):
@@ -232,8 +255,7 @@ def _dens_forward(ao, ao_grad, dm):
         stream = torch.cuda.current_stream(ao.device).cuda_stream
         err = lib.ds_dens_gga_launch(
             ao.data_ptr(), ao_grad.data_ptr(), dm.data_ptr(), rho.data_ptr(),
-            gdot.data_ptr(), ng, nao, batch, ng * nao, 3 * ng * nao,
-            nao * nao, *plan, stream)
+            gdot.data_ptr(), ng, nao, batch, *strides, *plan, stream)
     if err != 0:
         raise RuntimeError(f"ds_dens_gga kernel launch failed: cudaError "
                            f"{err} (ng={ng}, nao={nao}, batch={batch}, "
@@ -310,8 +332,9 @@ def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
     launch.
 
     CPU tensors: the plain version. CUDA tensors: the kernel; every tensor
-    must be contiguous. Differentiable on both. Raises on anything the
-    kernel does not take and on a failed build or launch."""
+    contiguous, or for a batch each member's block (any member stride;
+    vgrad's three times vrho's). Differentiable on both. Raises on
+    anything the kernel does not take and on a failed build or launch."""
     lead, ng, nao = _check_tables(ao, ao_grad, "ds_vxc_gga")
     if (tuple(vrho.shape) != lead + (ng,)
             or tuple(vgrad.shape) != lead + (3, ng)):
@@ -322,10 +345,20 @@ def ds_vxc_gga(ao, ao_grad, vrho, vgrad):
 
 
 def _vxc_forward(ao, ao_grad, vrho, vgrad):
-    if not _check_common("ds_vxc_gga", (ao, ao_grad, vrho, vgrad)):
-        return ds_vxc_reference(ao, ao_grad, vrho, vgrad)
     lead, (ng, nao) = tuple(ao.shape[:-2]), tuple(ao.shape[-2:])
+    if not _check_common("ds_vxc_gga", (ao, ao_grad, vrho, vgrad),
+                         bool(lead)):
+        return ds_vxc_reference(ao, ao_grad, vrho, vgrad)
     batch = lead[0] if lead else 1
+    strides = (ng * nao, 3 * ng * nao, ng)
+    if lead:
+        # the kernel reads vgrad at 3 x the member stride of vrho
+        if vgrad.stride(0) != 3 * vrho.stride(0):
+            raise ValueError(
+                "ds_vxc_gga on the card reads vgrad at three times the "
+                f"member stride of vrho; got {vgrad.stride(0)} and "
+                f"{vrho.stride(0)}")
+        strides = (ao.stride(0), ao_grad.stride(0), vrho.stride(0))
     lib = _nvcc.load("ds_vxc_gga", _VXC_SYMBOLS)
     plan = _vxc_launch_plan(ng, nao, batch, ao.device.index)
     with torch.cuda.device(ao.device):
@@ -338,8 +371,7 @@ def _vxc_forward(ao, ao_grad, vrho, vgrad):
         err = lib.ds_vxc_gga_launch(ao.data_ptr(), ao_grad.data_ptr(),
                                     vrho.data_ptr(), vgrad.data_ptr(),
                                     v.data_ptr(), part.data_ptr(), ng, nao,
-                                    batch, ng * nao, 3 * ng * nao, ng,
-                                    *plan, stream)
+                                    batch, *strides, *plan, stream)
     if err != 0:
         raise RuntimeError(f"ds_vxc_gga kernel launch failed: cudaError "
                            f"{err} (ng={ng}, nao={nao}, batch={batch}, "

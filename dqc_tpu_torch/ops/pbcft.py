@@ -31,6 +31,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..utils.config import DTYPE, block_bytes
+from ..utils.datastruct import stack_members, tree_member
 from .eri import hermite_factor_pair, hermite_factor_single
 from .mcd import hermite_list
 from .pbc import _np, estimate_rcut
@@ -297,7 +298,12 @@ def coulomb_gweights_sr(Gv, volume, omega):
 def aft_k_weighted(pbcft_theta, dm, w):
     """K = sum_G w_G (R_G dm R_G^T + I_G dm I_G^T), F = R + iI, for dm (n,
     n) or (2, n, n); no divergence correction. The G axis is cut into
-    blocks, so the (ng, n, n) products R_G dm are never whole."""
+    blocks, so the (ng, n, n) products R_G dm are never whole. A batch
+    (Fre (B, ng, n, n), w (B, ng), dm (B, [2,] n, n)) member by member."""
+    if pbcft_theta["Fre"].ndim == 4:
+        return stack_members([
+            aft_k_weighted(tree_member(pbcft_theta, m), dm[m], w[m])
+            for m in range(dm.shape[0])])
     if dm.ndim == 3:
         return torch.stack([aft_k_weighted(pbcft_theta, d, w) for d in dm])
     R, I = pbcft_theta["Fre"], pbcft_theta["Fim"]
@@ -321,9 +327,13 @@ def aft_k_weighted(pbcft_theta, dm, w):
 
 def aft_j(pbcft_theta, dm):
     """J_ij = sum_G w_G Re[rho(G) conj(F_ij(G))], rho(G) = sum_kl dm_kl
-    F_kl(G)."""
+    F_kl(G). A batch (Fre (B, ng, n, n), dm (B, n, n)) member by
+    member."""
     Fre, Fim, w = (pbcft_theta["Fre"], pbcft_theta["Fim"],
                    pbcft_theta["wcoul"])
+    if Fre.ndim == 4:
+        return stack_members([aft_j(tree_member(pbcft_theta, m), dm[m])
+                              for m in range(dm.shape[0])])
     ng, n = Fre.shape[0], Fre.shape[-1]
     fre, fim = Fre.reshape(ng, n * n), Fim.reshape(ng, n * n)
     d = dm.reshape(n * n)
@@ -335,8 +345,13 @@ def aft_k(theta, dm):
     sum_G w_G conj(F_ij(G)) F_kl(G), K = sum_G w_G (R_G dm R_G + I_G dm I_G).
     The dropped G = 0 term is restored by the probe-charge Ewald (Madelung)
     correction K += M S dm S, M = theta['pbcft']['madelung'] (exxdiv
-    'ewald'; None for exxdiv None). dm (n, n) or (2, n, n)."""
+    'ewald'; None for exxdiv None). dm (n, n) or (2, n, n); a batch
+    (theta's tensors (B, ...), dm (B, [2,] n, n)) member by member."""
     p = theta["pbcft"]
+    if p["Fre"].ndim == 4:
+        th = {"pbcft": p, "ovlp": theta["ovlp"]}
+        return stack_members([aft_k(tree_member(th, m), dm[m])
+                              for m in range(dm.shape[0])])
     k = aft_k_weighted(p, dm, p["wcoul"])
     mad = p.get("madelung")
     if mad is not None:

@@ -197,9 +197,10 @@ def df_k(df, dm, polarized=None):
     if batched:
         nb = b.shape[0]
         u = dm @ b.reshape(nb, nao, -1)
-        return b.reshape(nb, -1, nao).mT @ u.reshape(nb, -1, nao)
-    u = dm @ b.reshape(nao, -1)
-    k = b.reshape(-1, nao).T @ u.reshape(-1, nao)
+        k = b.reshape(nb, -1, nao).mT @ u.reshape(nb, -1, nao)
+    else:
+        u = dm @ b.reshape(nao, -1)
+        k = b.reshape(-1, nao).T @ u.reshape(-1, nao)
     if "madelung" in df:
         s = df["ovlp"]
         k = k + df["madelung"] * (s @ dm @ s)

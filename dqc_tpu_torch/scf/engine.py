@@ -6,9 +6,11 @@ occupation weights) is the only state.
 
 State convention: restricted -> dm (nao, nao); polarized -> dm (2, nao, nao).
 A batch of B geometries (parallel/batch.py) puts a leading axis on the
-state, (B, nao, nao) or (B, 2, nao, nao), and on every theta tensor of the
-dense and DF routes, (B, ...): the engines' products carry it, the kernels
-take it in one launch, and energies come out (B,).
+state, (B, nao, nao) or (B, 2, nao, nao), and on every theta tensor,
+(B, ...): the engines' products carry it, the kernels take it in one
+launch, and energies come out (B,). The blocked and streamed J/K and a
+periodic cell's J and K (scf/jk.py, ops/pbcft.py) contract member by
+member.
 
 Four routes for J and K, chosen by what theta carries:
   - dense: the exchange-layout tensor eri_k (eri_k[i,j,k,l] = (ik|jl)); J

@@ -24,10 +24,18 @@ indices in any order. The pairings are batched matrix products over the
 P_bd; (a d) x (b c) serves P_ad and P_bc, so a block is laid out anew twice
 per build.
 
-The JAX package's mesh sharding of jk_from_blocks is not ported (ROADMAP
-A16); nor are expand_k_tensor, expand_k_tensor_host and host_jk_builder,
-which reach eri_k from the blocks and split the program for the TPU
-compiler: the dense route builds eri_k directly.
+A batch of geometries (parallel/batch.py) stacks each member's blocks, or
+its factors, on a leading member axis (each member's own, built by its own
+theta from the calc's one screened jk_meta, so every member's blocks have
+the same shapes); jk_from_blocks and jk_matrices then take dm (B, [2,]
+nao, nao) and contract member by member, each member with the bits of its
+unbatched call.
+
+The JAX package's mesh sharding of jk_from_blocks spreads the blocks over
+TPU chips and has no counterpart on one card (PERF.md §6); nor have
+expand_k_tensor, expand_k_tensor_host and host_jk_builder, which reach
+eri_k from the blocks and split the program for the TPU compiler: the
+dense route builds eri_k directly.
 """
 from __future__ import annotations
 
@@ -39,6 +47,7 @@ import torch
 from ..ops.eri import HermiteFactor, coulomb_contract, hermite_factor_pair
 from ..ops.shellstruct import (BasisMeta, gather_pair_inputs, nsph,
                                tri_pair_classes)
+from ..utils.datastruct import stack_members
 
 
 def build_jk_meta(meta: BasisMeta, screened=None):
@@ -264,7 +273,12 @@ def jk_from_blocks(meta: BasisMeta, jk_meta, blocks, dm, want_j: bool = True,
                    want_k: bool = True):
     """J and/or K from the cached blocks (theta 'jkb{i}'). dm: (nao, nao) or
     (2, nao, nao) symmetric; J from the total density, K per spin, one pass
-    over the blocks for both spins."""
+    over the blocks for both spins. A batch: blocks (B, np1, sa, sb, np2,
+    sc, sd) with dm (B, [2,] nao, nao), member by member."""
+    if blocks[0].ndim == 7:
+        return stack_members([
+            jk_from_blocks(meta, jk_meta, [b[m] for b in blocks], dm[m],
+                           want_j, want_k) for m in range(dm.shape[0])])
     nao = meta.nao
     pol, dmt, dmk = _split_dm(dm)
     Jflat = torch.zeros(nao * nao, dtype=dm.dtype, device=dm.device)
@@ -292,7 +306,14 @@ def jk_matrices(meta: BasisMeta, jk_meta, facs: List[HermiteFactor], dm,
                 want_j: bool = True, want_k: bool = True, block=None):
     """Streamed J and/or K for a (possibly spin-stacked) symmetric dm: each
     combo's block is built from the factors, contracted and dropped before
-    the next."""
+    the next. A batch: factors with a leading member axis (H (B, npair,
+    nprim, nsph, nh)) and dm (B, [2,] nao, nao), member by member."""
+    if facs[0].H.ndim == 5:
+        return stack_members([
+            jk_matrices(meta, jk_meta,
+                        [HermiteFactor(H=f.H[m], p=f.p[m], P=f.P[m], L=f.L)
+                         for f in facs], dm[m], want_j, want_k, block)
+            for m in range(dm.shape[0])])
     nao = meta.nao
     pol, dmt, dmk = _split_dm(dm)
     Jflat = torch.zeros(nao * nao, dtype=dm.dtype, device=dm.device)

@@ -57,6 +57,7 @@ from ..ops.pbcft import (_blocked, _g_block, coulomb_gweights, eval_ao_ft,
                          gcut_estimate, pbc_pair_ft_k, pbc_pair_plan_ordered)
 from ..system.lattice import Lattice, ewald_energy
 from ..utils.config import DTYPE, config
+from ..utils.datastruct import stack_members, tree_member
 from ..xc.base import HFExchangeXC
 from ..xc.integrate import (_deriv_of_family, _edens_at, _pointwise_adjoints,
                             _vxc_assemble, density_from_tables)
@@ -67,14 +68,16 @@ from .pbc import (AO_PRECISION, AO_PT_CHUNK, CORE_PRECISION,
                   GDF_METRIC_CUTOFF, _sync, pbc_grid_points)
 
 
-def split(z):
-    """Complex tensor -> real tensor of stacked (re, im) on axis 0."""
-    return torch.stack([z.real, z.imag])
+def split(z, batched: bool = False):
+    """Complex tensor -> real tensor of stacked (re, im) on axis 0 (on axis
+    1 for a batch, whose axis 0 is the member: x[m] is member m's state)."""
+    return torch.stack([z.real, z.imag], dim=int(batched))
 
 
-def join(x):
+def join(x, batched: bool = False):
     """Inverse of split."""
-    return torch.complex(x[0], x[1])
+    ax = int(batched)
+    return torch.complex(x.select(ax, 0), x.select(ax, 1))
 
 
 def kmesh_supercell(lattice, kpts):
@@ -331,18 +334,21 @@ def build_kpbc_theta(sol, params, atomzs, *, semilocal=True, family=1,
 
 
 def _embed(dmc, wk):
-    """w_k [[P, Q], [-Q, P]] (nk, 2 nao, 2 nao) of D^k = P + iQ."""
+    """w_k [[P, Q], [-Q, P]] ([B,] nk, 2 nao, 2 nao) of D^k = P + iQ."""
     P, Q = dmc.real, dmc.imag
     m = torch.cat([torch.cat([P, Q], -1), torch.cat([-Q, P], -1)], -2)
-    return m * wk[:, None, None]
+    return m * wk[..., None, None]
 
 
 def _tables_k(grid, k):
-    tabs = {"ao": grid["ao"][k]}
+    """The tables at k-point k: views, for a batch (B, nk, ...) the
+    members' tables at k, each member's block contiguous (read in place by
+    K2/K3)."""
+    tabs = {"ao": grid["ao"].select(-3, k)}
     if "ao_grad" in grid:
-        tabs["ao_grad"] = grid["ao_grad"][k]
+        tabs["ao_grad"] = grid["ao_grad"].select(-4, k)
     if "ao_lapl" in grid:
-        tabs["ao_lapl"] = grid["ao_lapl"][k]
+        tabs["ao_lapl"] = grid["ao_lapl"].select(-3, k)
     return tabs
 
 
@@ -365,7 +371,15 @@ class KPBCEngine:
     """Restricted/unrestricted k-point Kohn-Sham (and HF: xc "hf") with LDA,
     GGA and meta-GGA functionals, hybrid and range-separated exact exchange
     and the k-point fit (module docstring). The state is the stacked (re,
-    im) real form of D^k; theta comes from build_kpbc_theta."""
+    im) real form of D^k; theta comes from build_kpbc_theta.
+
+    A batch of cells (parallel/batch.py): theta's tensors stacked on a
+    leading member axis (X (B, nk, nao, nao)) and the state (B, 2, [2,]
+    nk, nao, nao), whose member m is member m's unbatched state. The XC
+    runs for all members at once: K2 and K3 once per k-point and spin per
+    Fock build, each on the members' tables at that k (strided views, read
+    in place). J, the exchange, the eigensolves and the energy's other
+    terms run member by member, each on its member's theta."""
 
     def __init__(self, xc, nk: int, nao: int, polarized: bool = False):
         self.xc = xc
@@ -385,11 +399,23 @@ class KPBCEngine:
     def dm_tot(self, dmc):
         return dmc.sum(dim=0) if self.polarized else dmc
 
-    def init_dm(self, device):
-        """The zero state (the core guess)."""
+    def init_dm(self, device, batch=None):
+        """The zero state (the core guess), of `batch` members when given."""
         shape = ((2, 2) if self.polarized else (2,)) + (
             self.nk, self.nao, self.nao)
+        if batch is not None:
+            shape = (batch,) + shape
         return torch.zeros(shape, dtype=DTYPE, device=device)
+
+    @staticmethod
+    def _batched(theta):
+        """Whether theta is a batch's (a leading member axis on X)."""
+        return theta["X"].ndim == 4
+
+    @staticmethod
+    def _members(fn, nb):
+        """fn(m) of every member m of a batch, stacked."""
+        return stack_members([fn(m) for m in range(nb)])
 
     # --- Coulomb ---------------------------------------------------------
     def _rho_g(self, dmt, theta):
@@ -422,17 +448,17 @@ class KPBCEngine:
         g = theta["grid"]
         m = _embed(dmc, theta["wk"])
         out = None
-        for k in range(dmc.shape[0]):
-            d = density_from_tables(_tables_k(g, k), m[k], self.xc.family,
-                                    polarized=False)
+        for k in range(dmc.shape[-3]):
+            d = density_from_tables(_tables_k(g, k), m.select(-3, k),
+                                    self.xc.family, polarized=False)
             out = d if out is None else {key: out[key] + d[key]
                                          for key in out}
         return out
 
     def _dens(self, dmc, theta):
         if self.polarized:
-            return {"u": self._dens_of(dmc[0], theta),
-                    "d": self._dens_of(dmc[1], theta)}
+            return {"u": self._dens_of(dmc.select(-4, 0), theta),
+                    "d": self._dens_of(dmc.select(-4, 1), theta)}
         return self._dens_of(dmc, theta)
 
     def _assemble(self, vbar, grid):
@@ -441,15 +467,15 @@ class KPBCEngine:
         F^k is the band Fock matrix."""
         n = self.nao
         W = torch.stack([_vxc_assemble(vbar, _tables_k(grid, k))
-                         for k in range(grid["ao"].shape[0])])
-        v = torch.complex(W[:, :n, :n] + W[:, n:, n:],
-                          W[:, :n, n:] - W[:, n:, :n])
+                         for k in range(grid["ao"].shape[-3])], dim=-3)
+        v = torch.complex(W[..., :n, :n] + W[..., n:, n:],
+                          W[..., :n, n:] - W[..., n:, :n])
         return 0.5 * (v + v.mH)
 
     def _vxc_of(self, vbar, grid):
         if self.polarized:
             return torch.stack([self._assemble(vbar["u"], grid),
-                                self._assemble(vbar["d"], grid)])
+                                self._assemble(vbar["d"], grid)], dim=-4)
         return self._assemble(vbar, grid)
 
     def _exc_vxc(self, dmc, theta):
@@ -461,6 +487,8 @@ class KPBCEngine:
     def _exc(self, dmc, theta):
         e = _edens_at(self.xc, self._dens(dmc, theta), self.polarized,
                       theta.get("xc_params"))
+        if self._batched(theta):
+            return torch.sum(e * theta["grid"]["dvol"], dim=-1)
         return torch.sum(e * theta["grid"]["dvol"])
 
     # the plain version: the JAX package's complex einsums (kpbc.py:307-376)
@@ -574,16 +602,22 @@ class KPBCEngine:
 
     # --- SCF pieces (states in the stacked real form) ----------------------
     def jk_parts(self, x, theta):
-        """(J^k of the total density, (K_full, K_lr list) or None)."""
+        """(J^k of the total density, (K_full, K_lr list) or None); a batch
+        member by member."""
+        if self._batched(theta):
+            return self._members(lambda m: self.jk_parts(
+                x[m], tree_member(theta, m)), x.shape[0])
         dmc = join(x)
         j = self._j(self.dm_tot(dmc), theta)
         return j, (self._k_all(dmc, theta) if self.has_exx else None)
 
     def fock_from_parts(self, x, j, k, theta):
-        dmc = join(x)
+        """F^k from J and K; V_xc of every member of a batch at once."""
+        batched = self._batched(theta)
+        dmc = join(x, batched)
         f = theta["hcore"] + j
         if self.polarized:
-            f = f[None].expand((2,) + f.shape)
+            f = f.unsqueeze(-4).expand(f.shape[:-3] + (2,) + f.shape[-3:])
         if self.semilocal:
             f = f + self._exc_vxc(dmc, theta)[1]
         if k is not None:
@@ -593,7 +627,7 @@ class KPBCEngine:
                 f = f - fac * self.hyb * kf
             for (c, _), klr in zip(self.exx_lr, k_lrs):
                 f = f - fac * c * klr
-        return split(f)
+        return split(f, batched)
 
     def fock(self, x, theta):
         return self.fock_from_parts(x, *self.jk_parts(x, theta), theta)
@@ -608,6 +642,9 @@ class KPBCEngine:
         return X.mH @ join(fx) @ X + torch.diag_embed(pin).to(X.dtype)
 
     def dm_from_fock(self, fx, theta):
+        if self._batched(theta):
+            return self._members(lambda m: self.dm_from_fock(
+                fx[m], tree_member(theta, m)), fx.shape[0])
         occ = theta["occ"]
         if self.polarized:
             occ = occ[:, None, :]
@@ -619,6 +656,15 @@ class KPBCEngine:
         return self.dm_from_fock(self.fock(x, theta), theta)
 
     def energy_from_parts(self, x, j, k, theta, exc=None):
+        """The total energy ((B,) for a batch: E_xc of all members at once,
+        the rest member by member)."""
+        if self._batched(theta):
+            if exc is None and self.semilocal:
+                exc = self._exc(join(x, True), theta)
+            return self._members(lambda m: self.energy_from_parts(
+                x[m], None if j is None else j[m], _member_of(k, m),
+                tree_member(theta, m), None if exc is None else exc[m]),
+                x.shape[0])
         dmc = join(x)
         dmt = self.dm_tot(dmc)
         wk = theta["wk"].to(dmt.dtype)
@@ -644,20 +690,43 @@ class KPBCEngine:
         return e
 
     def energy(self, x, theta):
+        if self._batched(theta):
+            exc = (self._exc(join(x, True), theta) if self.semilocal
+                   else None)
+            return self._members(lambda m: self._energy_member(
+                x[m], tree_member(theta, m),
+                None if exc is None else exc[m]), x.shape[0])
+        return self._energy_member(x, theta)
+
+    def _energy_member(self, x, theta, exc=None):
         dmc = join(x)
         j = self._j(self.dm_tot(dmc), theta) if "kdf" in theta else None
         k = self._k_all(dmc, theta) if self.has_exx else None
-        return self.energy_from_parts(x, j, k, theta)
+        return self.energy_from_parts(x, j, k, theta, exc=exc)
 
     def diis_err(self, fx, x, theta):
+        if self._batched(theta):
+            return self._members(lambda m: self.diis_err(
+                fx[m], x[m], tree_member(theta, m)), fx.shape[0])
         s, X = theta["ovlp"], theta["X"]
         fds = join(fx) @ join(x) @ s
         return split(X.mH @ (fds - fds.mH) @ X)
 
     def eigenvalues(self, fx, theta):
         """Band energies (ascending, (..., nk, nao)) of Fock matrices; the
-        masked directions pinned at LARGE."""
+        masked directions pinned at LARGE; a batch member by member."""
+        if self._batched(theta):
+            return self._members(lambda m: self.eigenvalues(
+                fx[m], tree_member(theta, m)), fx.shape[0])
         return torch.linalg.eigvalsh(self._orthogonal_fock(fx, theta))
+
+
+def _member_of(part, m):
+    """Member m of a batch's exchange (K_full, [K_lr, ...]), or None."""
+    if part is None:
+        return None
+    kf, k_lrs = part
+    return kf[m], [kl[m] for kl in k_lrs]
 
 
 def band_energies(qc, kpts_band):

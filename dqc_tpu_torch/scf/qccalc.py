@@ -66,7 +66,7 @@ from ..ops.pbc import estimate_rcut
 from ..ops.shellstruct import nsph, pack_basis
 from ..utils.cache import Cache
 from ..utils.config import config
-from ..utils.datastruct import SpinParam
+from ..utils.datastruct import SpinParam, tree_batch_of_one, tree_member
 from ..utils.logger import log
 from ..utils.optimize import minimize_bfgs
 from ..xc import get_xc
@@ -75,7 +75,8 @@ from ..xc.integrate import (_detached, density_from_tables,
                              setup_grid_theta, vext_matrix)
 from .df import build_df_theta
 from .engine import HFEngine, KSEngine
-from .fixed_point import SCFOptions, diis_solve, implicit_fixed_point
+from .fixed_point import (SCFOptions, diis_solve, diis_solve_batch,
+                          implicit_fixed_point)
 from .hamilton import build_core_theta
 from .jk import (build_jk_blocks, build_jk_factors, build_jk_meta,
                  factors_to_theta, jk_blocks_nbytes, jk_combos)
@@ -93,6 +94,20 @@ GUESS_NAO = 96
 # package's gtol, dqc_tpu/scf/qccalc.py:245)
 VAR_GTOL = 1e-9
 ORB_PARAMS = ("matexp", "qr", "ov")
+
+
+def _start_orbitals(X, keep, f0):
+    """(C0, U0) of the variational solver: the eigenvectors U0 of the start
+    Fock f0 ([B,] [2,] n, n) in the orthogonal basis of X ([B,] n, n), the
+    directions that keep ([B,] n) drops pinned at LARGE, and C0 = X U0."""
+    if f0.ndim > X.ndim:                      # a spin axis
+        X, keep = X.unsqueeze(-3), keep.unsqueeze(-2)
+    pin = torch.where(keep, torch.zeros_like(X[..., 0, :]),
+                      torch.full_like(X[..., 0, :], LARGE))
+    _, u0 = torch.linalg.eigh(
+        torch.einsum("...im,...ij,...jn->...mn", X, f0, X)
+        + torch.diag_embed(pin))
+    return torch.einsum("...ij,...jk->...ik", X, u0), u0
 
 
 def _occ_array(mol, polarized):
@@ -165,27 +180,33 @@ class SCF_QCCalc:
         return p
 
     # --- the functional core -------------------------------------------
-    def _start_fock(self, theta):
+    def _start_fock(self, theta, stats=None):
         """Initial Fock: the core guess (dm0 = 0, so F = hcore) below
         GUESS_NAO; above it F(dm0) of the SAD density, or the GWH Fock for
         guess="gwh", when SAD fails (sad_dm0 raises ValueError: an element
         past the aufbau table or a non-finite atomic density; remembered per
         calc) or when F(dm0) is not finite. Any other error of the atomic
         SCFs (a kernel's build or launch among them) propagates.
-        stats['guess'] says which; stats['sad_s'] (part of scf_s) the
-        seconds of the atomic SCFs. A k-point cell starts from the core
-        guess at any size (its engine's zero state), as in the JAX
-        package."""
+        stats (default self.stats): 'guess' says which; 'sad_s' (part of
+        scf_s) the seconds of the atomic SCFs. A k-point cell starts from
+        the core guess at any size (its engine's zero state), as in the JAX
+        package. A stacked theta (parallel/batch.py) gets the start Fock of
+        every member: the same atoms in every member, so one SAD density."""
         eng, opts = self.engine, self.opts
+        st = self.stats if stats is None else stats
         mol = self.mol
         nao = mol.meta.nao
-        if isinstance(eng, KPBCEngine):
-            self.stats["guess"] = "core"
-            return eng.fock(eng.init_dm(mol.device), theta)
+        kpt = isinstance(eng, KPBCEngine)
+        nb = (theta["X"].shape[0]
+              if theta["X"].ndim == (4 if kpt else 3) else None)
+        lead = () if nb is None else (nb,)
+        if kpt:
+            st["guess"] = "core"
+            return eng.fock(eng.init_dm(mol.device, nb), theta)
         if nao < GUESS_NAO:
-            shape = (2, nao, nao) if eng.polarized else (nao, nao)
+            shape = lead + ((2, nao, nao) if eng.polarized else (nao, nao))
             dm0 = torch.zeros(shape, dtype=mol.dtype, device=mol.device)
-            self.stats["guess"] = "core"
+            st["guess"] = "core"
             return eng.fock(dm0, theta)
         if opts.guess == "sad" and not getattr(self, "_sad_failed", False):
             d0 = getattr(self, "_sad_dm0", None)
@@ -196,21 +217,22 @@ class SCF_QCCalc:
                 except ValueError as ex:   # exotic Z, or a non-finite atom
                     log(f"SAD guess failed ({ex}); using GWH", level=0)
                     self._sad_failed = True
-                    self.stats["guess"] = "gwh"
+                    st["guess"] = "gwh"
                     return gwh_fock(theta, eng.polarized)
                 self._sync()
                 self._sad_dm0 = d0   # one set of atomic SCFs per calc
-                self.stats.update(
+                st.update(
                     sad_s=time.perf_counter() - t0,
                     sad_elements=sorted({ab.atomz for ab in mol.atombases}))
+            d0 = d0.expand(lead + (nao, nao)).contiguous()
             if eng.polarized:
-                d0 = torch.stack([0.5 * d0, 0.5 * d0])
+                d0 = torch.stack([0.5 * d0, 0.5 * d0], dim=-3)
             f = eng.fock(d0, theta)
             if bool(torch.isfinite(f).all()):
-                self.stats["guess"] = "sad"
+                st["guess"] = "sad"
                 return f
             log("SAD initial Fock not finite; using GWH", level=0)
-        self.stats["guess"] = "gwh"
+        st["guess"] = "gwh"
         return gwh_fock(theta, eng.polarized)
 
     def _solver(self, theta, dm0=None):
@@ -233,7 +255,7 @@ class SCF_QCCalc:
                           residual_history=errh)
         return eng.dm_from_fock(f_star, theta)
 
-    def _variational_solver(self, theta, dm0=None):
+    def _variational_solver(self, theta, dm0=None, stats=None):
         """Direct minimisation of the energy over orbital rotations, the JAX
         package's _variational_solver (dqc_tpu/scf/qccalc.py:136-246):
         dm = C occ C^T with the orbitals C(params) of one of three
@@ -247,21 +269,37 @@ class SCF_QCCalc:
           ov: C = C0 expm(K - K^T), K only in the occupied x virtual block
               (nocc * nvirt parameters per spin; integer occupations).
         Never differentiated: solve_dm differentiates its result through
-        implicit_fixed_point, as for DIIS. stats: iterations (BFGS),
-        var_evaluations, var_status, var_message, var_grad_max_abs, and
-        residual, the DIIS error of the result (one more Fock build)."""
+        implicit_fixed_point, as for DIIS. stats (default self.stats):
+        iterations (BFGS), var_evaluations, var_status, var_message,
+        var_grad_max_abs, and residual, the DIIS error of the result (one
+        more Fock build).
+
+        A theta stacked on a member axis (parallel/batch.solve_batch) gets
+        the start orbitals and the "ov" blocks per member, and ONE BFGS
+        over the stacked parameters of all members that minimises the sum
+        of their energies, each evaluation one batched energy (on the dense
+        route K1 once for the whole batch). The sum is separable, so its
+        minimiser is the members' minimisers, and max |gradient| <=
+        VAR_GTOL over the stack is every member's own stop. This departs from
+        the JAX package's solver under jax.vmap, which runs a line search
+        and a Hessian estimate per member: here the members share them, so
+        the iterates differ while each member's result is held to its own
+        gradient. residual is then per member."""
         eng, opts = self.engine, self.opts
+        st = self.stats if stats is None else stats
         if opts.orb_param not in ORB_PARAMS:
             raise ValueError(f"unknown orb_param {opts.orb_param!r}; "
                              f"one of {ORB_PARAMS}")
         theta = _detached(theta)
-        f0 = self._start_fock(theta) if dm0 is None else eng.fock(dm0, theta)
         X, occ = theta["X"], theta["occ"]
-        pin = torch.where(theta["keep"], torch.zeros_like(X[0]),
-                          torch.full_like(X[0], LARGE))
-        _, u0 = torch.linalg.eigh(
-            torch.einsum("im,...ij,jn->...mn", X, f0, X) + torch.diag(pin))
-        c0 = torch.einsum("ij,...jk->...ik", X, u0)
+        batch = X.ndim == 3
+        f0 = (self._start_fock(theta, st) if dm0 is None
+              else eng.fock(dm0, theta))
+        c0, u0 = _start_orbitals(X, theta["keep"], f0)
+        xs = X.unsqueeze(-3) if eng.polarized else X
+
+        def rotate(q):
+            return torch.einsum("...ij,...jk->...ik", xs, q)
         n = c0.shape[-1]
         shape = tuple(c0.shape)
 
@@ -279,43 +317,49 @@ class SCF_QCCalc:
                 q, r = torch.linalg.qr(p.reshape(shape))
                 s = torch.sign(torch.diagonal(r, dim1=-2, dim2=-1))
                 s = torch.where(s == 0, torch.ones_like(s), s)
-                return density(torch.einsum("ij,...jk->...ik", X,
-                                            q * s[..., None, :]))
+                return density(rotate(q * s[..., None, :]))
             k0 = u0.reshape(-1)
         else:
+            # one block per matrix of c0 (per member and spin): its rows of
+            # occ and of c0 flatten the leading axes alike
             occ2 = occ.reshape(-1, n).cpu().numpy()
             fmax = occ2.max(axis=-1, keepdims=True)
             if not np.all((occ2 == 0) | (occ2 == fmax)):
                 raise ValueError(
                     "orb_param='ov' needs integer aufbau occupations; use "
                     "'matexp' for fractional occupations")
-            blocks = [(torch.as_tensor(np.flatnonzero(o > 0),
-                                       device=c0.device),
-                       torch.as_tensor(np.flatnonzero(o == 0),
-                                       device=c0.device)) for o in occ2]
-            sizes = [len(io) * len(iv) for io, iv in blocks]
+            # K's entries, block after block, each block's occupied x
+            # virtual entries row-major: their (matrix, row, column) in
+            # one scatter, then one batched expm for all matrices
+            where = [np.concatenate(t) for t in zip(*(
+                (np.full(len(io) * len(iv), b), np.repeat(io, len(iv)),
+                 np.tile(iv, len(io)))
+                for b, (io, iv) in enumerate(
+                    (np.flatnonzero(o > 0), np.flatnonzero(o == 0))
+                    for o in occ2)))]
+            where = tuple(torch.as_tensor(w, device=c0.device)
+                          for w in where)
             c0s = c0.reshape(-1, n, n)
 
             def dm_of(k):
-                cs, off = [], 0
-                for (io, iv), size, c in zip(blocks, sizes, c0s):
-                    pm = torch.zeros((n, n), dtype=k.dtype, device=k.device)
-                    pm[io[:, None], iv[None, :]] = \
-                        k[off:off + size].reshape(len(io), len(iv))
-                    off += size
-                    cs.append(c @ torch.linalg.matrix_exp(pm - pm.T))
-                return density(torch.stack(cs).reshape(shape))
-            k0 = torch.zeros(sum(sizes), dtype=c0.dtype, device=c0.device)
-        x, info = minimize_bfgs(lambda k: eng.energy(dm_of(k), theta), k0,
-                                opts.var_maxiter, VAR_GTOL)
+                pm = torch.zeros(c0s.shape, dtype=k.dtype, device=k.device)
+                pm = pm.index_put(where, k)
+                return density((c0s @ torch.linalg.matrix_exp(
+                    pm - pm.transpose(-1, -2))).reshape(shape))
+            k0 = torch.zeros(len(where[0]), dtype=c0.dtype,
+                             device=c0.device)
+        def fn(k):
+            return eng.energy(dm_of(k), theta).sum()
+
+        x, info = minimize_bfgs(fn, k0, opts.var_maxiter, VAR_GTOL)
         dm = dm_of(x)
-        err = float(torch.max(torch.abs(
-            eng.diis_err(eng.fock(dm, theta), dm, theta))))
-        self.stats.update(iterations=info["iterations"], residual=err,
-                          var_evaluations=info["evaluations"],
-                          var_status=info["status"],
-                          var_message=info["message"],
-                          var_grad_max_abs=info["grad_max_abs"])
+        err = torch.abs(eng.diis_err(eng.fock(dm, theta), dm, theta))
+        err = (torch.amax(err.reshape(shape[0], -1), dim=-1).tolist()
+               if batch else float(torch.max(err)))
+        st.update(iterations=info["iterations"], residual=err,
+                  var_evaluations=info["evaluations"],
+                  var_status=info["status"], var_message=info["message"],
+                  var_grad_max_abs=info["grad_max_abs"])
         return dm
 
     def _step_and_err(self, theta, corr=None):
@@ -335,70 +379,125 @@ class SCF_QCCalc:
         return step_and_err
 
     def _stream_solve(self, theta, dm0=None):
-        """SCF of the streamed route, the JAX package's f64 RI phase and
-        dual-level polish (dqc_tpu/scf/qccalc.py:674-686, :704-761): DIIS on
-        the RI fit theta['warm_df'] (tol max(tol, 1e-6), 25 iterations,
-        patience 4) from the start Fock of that fit (the JAX package's
-        takes one exact build for it); then outer cycles,
-        each one exact streamed J/K build at the current density, its
-        residual measured, and an inner DIIS on the RI map plus the frozen
-        correction (exact - RI at that density; tol max(tol/10, 1e-13), 20
-        iterations, patience 4). It stops at tol, or when an exact residual
-        is above 0.25 times the best one (stagnation), after at most 8
-        outer cycles, and returns the best exact iterate's dm; its exact
-        J/K are kept for run()'s energy (_last_jk). stats: ri_iterations,
-        dual_inner_iterations, exact_jk ({'builds', 'seconds',
-        'residuals'}), iterations (all Fock builds), residual (the best
-        exact one)."""
+        """SCF of the streamed route: _stream_solve_batch on a batch of
+        one, its per-member records unwrapped into self.stats and
+        self._last_jk (whose dm is the one returned: run() takes its J and
+        K for the energy)."""
+        st = {}
+        self._stream_solve_batch(
+            tree_batch_of_one(theta), None if dm0 is None else dm0[None],
+            st)
+        self._last_jk = self._last_jk[0]
+        for key in ("iterations", "residual", "ri_iterations",
+                    "dual_inner_iterations", "exact_jk"):
+            st[key] = st[key][0]
+        st["residual_history"] = torch.as_tensor(st["residual_history"][0])
+        self.stats.update(st)
+        return self._last_jk[0]
+
+    def _stream_solve_batch(self, theta, dm0=None, stats=None):
+        """SCF of the streamed route for a theta stacked on a member axis
+        (parallel/batch.py; _stream_solve runs a batch of one), the JAX
+        package's f64 RI phase and dual-level polish
+        (dqc_tpu/scf/qccalc.py:674-686, :704-761): batched DIIS on the RI
+        fits theta['warm_df'] (tol max(tol, 1e-6), 25 iterations, patience
+        4) from the start Fock of that fit (the JAX package's takes one
+        exact build for it); then outer cycles, each one exact streamed
+        J/K build per member that has not stopped (its own factors,
+        jk_matrices), one batched Fock build of those members, their
+        residuals measured, and an inner batched DIIS of the members still
+        running on the RI map plus each one's frozen correction (exact - RI
+        at that density; tol max(tol/10, 1e-13), 20 iterations, patience
+        4). A member stops at tol, or when its exact residual is above 0.25
+        times its best one (stagnation), after at most 8 outer cycles, and
+        is then frozen. Returns the members' best exact iterates' dm,
+        stacked; self._last_jk gets each member's (dm, J, K) of that
+        iterate, for run()'s energy. stats (default self.stats), per
+        member: ri_iterations, dual_inner_iterations, exact_jk ({'builds',
+        'seconds', 'residuals'}), iterations (all Fock builds), residual
+        (the best exact one); and residual_history, the RI phase's."""
         eng, opts = self.engine, self.opts
+        st = self.stats if stats is None else stats
         theta_ri = {k: v for k, v in theta.items() if k != "jk_facs"}
         theta_ri["df"] = theta["warm_df"]
-        f = (self._start_fock(theta_ri) if dm0 is None
+        f = (self._start_fock(theta_ri, st) if dm0 is None
              else eng.fock(dm0, theta_ri))
         ri_opts = opts._replace(tol=max(opts.tol, 1e-6), maxiter=25,
                                 diis_patience=4)
-        f, _, n_ri, _, errh = diis_solve(self._step_and_err(theta_ri), f,
-                                         ri_opts)
+        f, _, n_ri, _, errh = diis_solve_batch(self._step_and_err(theta_ri),
+                                               f, ri_opts)
         inner_opts = opts._replace(tol=max(opts.tol * 0.1, 1e-13),
                                    maxiter=20, diis_patience=4)
-        best = (float("inf"), None, None, None)
-        exact = {"builds": 0, "seconds": [], "residuals": []}
-        inner = []
+        nb = f.shape[0]
+        best = [(float("inf"), None, None, None)] * nb
+        exact = [{"builds": 0, "seconds": [], "residuals": []}
+                 for _ in range(nb)]
+        inner = [[] for _ in range(nb)]
+        running = list(range(nb))
         for _ in range(8):
-            dm = eng.dm_from_fock(f, theta)
-            t0 = time.perf_counter()
-            j_ex, k_ex = eng.jk_parts(dm, theta)
-            self._sync()
-            exact["builds"] += 1
-            exact["seconds"].append(time.perf_counter() - t0)
-            f_new = eng.fock_from_parts(dm, j_ex, k_ex, theta)
-            err = float(torch.max(torch.abs(eng.diis_err(f_new, dm, theta))))
-            exact["residuals"].append(err)
-            if not err == err or err == float("inf"):
-                log("stream SCF: non-finite exact residual; returning the "
-                    "best outer iterate", level=0)
-                if best[1] is None:
-                    best = (err, dm, j_ex, k_ex)
+            if not running:
                 break
-            stalled = err > 0.25 * best[0]
-            if err < best[0]:
-                best = (err, dm, j_ex, k_ex)
-            if err < opts.tol or stalled:
-                break
-            j_ri, k_ri = eng.jk_parts(dm, theta_ri)
-            corr = (j_ex - j_ri, None if k_ex is None else k_ex - k_ri)
-            f, _, n_in, _, _ = diis_solve(
-                self._step_and_err(theta_ri, corr), f_new, inner_opts)
-            inner.append(n_in)
-        err, dm, j_ex, k_ex = best
-        if err > opts.tol:
-            log(f"stream SCF exited above tol (residual {err:.3e})", level=0)
-        self._last_jk = (dm, j_ex, k_ex)
-        self.stats.update(iterations=n_ri + sum(inner) + exact["builds"],
-                          residual=err, residual_history=errh,
-                          ri_iterations=n_ri, dual_inner_iterations=inner,
-                          exact_jk=exact)
-        return dm
+            whole = len(running) == nb
+            th = theta if whole else tree_member(theta, running)
+            dm = eng.dm_from_fock(f if whole else f[running], th)
+            parts = []
+            for i, m in enumerate(running):
+                t0 = time.perf_counter()
+                parts.append(eng.jk_parts(dm[i], tree_member(th, i)))
+                self._sync()
+                exact[m]["builds"] += 1
+                exact[m]["seconds"].append(time.perf_counter() - t0)
+            j_ex = torch.stack([p[0] for p in parts])
+            k_ex = (None if parts[0][1] is None
+                    else torch.stack([p[1] for p in parts]))
+            f_new = eng.fock_from_parts(dm, j_ex, k_ex, th)
+            e = eng.diis_err(f_new, dm, th)
+            errs = torch.amax(torch.abs(e).reshape(len(running), -1),
+                              dim=-1).tolist()
+            go = []
+            for i, m in enumerate(running):
+                err = errs[i]
+                exact[m]["residuals"].append(err)
+                if not err == err or err == float("inf"):
+                    log(f"stream SCF, member {m}: non-finite exact "
+                        "residual; returning its best outer iterate",
+                        level=0)
+                    if best[m][1] is None:
+                        best[m] = (err, dm[i], parts[i][0], parts[i][1])
+                    continue
+                stalled = err > 0.25 * best[m][0]
+                if err < best[m][0]:
+                    best[m] = (err, dm[i], parts[i][0], parts[i][1])
+                if not (err < opts.tol or stalled):
+                    go.append(i)
+            if go:
+                th_ri = {k: v for k, v in tree_member(th, go).items()
+                         if k != "jk_facs"}
+                th_ri["df"] = th_ri["warm_df"]
+                dm_go = dm[go]
+                j_ri, k_ri = eng.jk_parts(dm_go, th_ri)
+                corr = (j_ex[go] - j_ri,
+                        None if k_ex is None else k_ex[go] - k_ri)
+                f_in, _, n_in, _, _ = diis_solve_batch(
+                    self._step_and_err(th_ri, corr), f_new[go], inner_opts)
+                f = f.clone()
+                for i, row in zip(go, f_in):
+                    f[running[i]] = row
+                for i, n in zip(go, n_in):
+                    inner[running[i]].append(n)
+            running = [running[i] for i in go]
+        errs = [b[0] for b in best]
+        bad = [e for e in errs if not e <= opts.tol]
+        if bad:
+            log(f"stream SCF: {len(bad)} of {nb} member(s) exited above tol "
+                f"(worst residual {max(bad):.3e})", level=0)
+        self._last_jk = [(b[1], b[2], b[3]) for b in best]
+        st.update(iterations=[n_ri[m] + sum(inner[m]) + exact[m]["builds"]
+                              for m in range(nb)],
+                  residual=errs, residual_history=errh,
+                  ri_iterations=n_ri, dual_inner_iterations=inner,
+                  exact_jk=exact)
+        return torch.stack([b[1] for b in best])
 
     def _sync(self):
         if self.mol.device.type == "cuda":

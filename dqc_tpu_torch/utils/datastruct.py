@@ -177,3 +177,47 @@ def member_params(params_b, m: int):
     for path in BATCH_PATHS:
         out = _put(out, path, _get(params_b, path)[m])
     return out
+
+
+def tree_member(tree, m):
+    """Member m of a stacked tree (parallel/batch's theta, whose tensors
+    carry a leading member axis): every tensor indexed at m (a view), or
+    with m a list of members every tensor taken at them (a sub-batch);
+    anything else (floats, ints, None) as it is, and so is the entry
+    "xc_params", the members' shared tree."""
+    if isinstance(tree, dict):
+        return {k: v if k == "xc_params" else tree_member(v, m)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        if isinstance(m, int):
+            return tree[m]
+        return tree[torch.as_tensor(m, device=tree.device)]
+    return tree
+
+
+def tree_batch_of_one(tree):
+    """An unbatched tree as a stacked tree of one member (tree_member's
+    inverse at m = 0): every tensor a view with a leading axis of 1 (its
+    jk_tag kept), anything else and the entry "xc_params" as they are."""
+    if isinstance(tree, dict):
+        return {k: v if k == "xc_params" else tree_batch_of_one(v)
+                for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        out = tree[None]
+        tag = getattr(tree, "jk_tag", None)
+        if tag is not None:
+            out.jk_tag = tag
+        return out
+    return tree
+
+
+def stack_members(outs, dim: int = 0):
+    """The members' results of a loop, stacked: outs is a list of tensors,
+    of None, or of tuples/lists of those (each entry stacked on its own;
+    None stays None)."""
+    first = outs[0]
+    if first is None:
+        return None
+    if isinstance(first, torch.Tensor):
+        return torch.stack(outs, dim=dim)
+    return type(first)(stack_members(list(o), dim) for o in zip(*outs))

@@ -120,8 +120,8 @@ def density_from_tables(tabs, dm, family: int, polarized: bool):
     def dens_of(dmi):
         if deriv == 0:
             return {"rho": torch.einsum("...gi,...gi->...g", ao @ dmi, ao)}
-        rho, gdot = hopper_xc.ds_dens_gga(ao, ag.contiguous(),
-                                          dmi.contiguous())
+        # the tables as they are: a batch's member views are read in place
+        rho, gdot = hopper_xc.ds_dens_gga(ao, ag, dmi.contiguous())
         out = {"rho": rho, "grad": gdot}
         if deriv >= 2:
             gb = torch.einsum("...dgi,...ij->...dgj", ag, dmi)
@@ -198,8 +198,8 @@ def _vxc_assemble(vbar, tabs):
         V = torch.einsum("...gi,...g,...gj->...ij", ao, vbar["rho"], ao)
     else:
         # d(grad rho_d)/d dm_ij = 2 ag_dgi ao_gj (gdot = 2 <gb, ao>)
-        V = hopper_xc.ds_vxc_gga(ao, ag.contiguous(),
-                                 vbar["rho"].contiguous(), vg.contiguous())
+        V = hopper_xc.ds_vxc_gga(ao, ag, vbar["rho"].contiguous(),
+                                 vg.contiguous())
     vl = vbar.get("lapl")
     if vl is not None:
         # lapl = 2 t1 + 2 gg, t1 = <L dm, ao>, gg = <ag dm, ag>

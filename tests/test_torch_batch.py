@@ -17,7 +17,8 @@ package's jax.vmap of its energy_fn, on the CPU.
 - A polarized batch (H3 chains, UKS-LDA) with the position gradient of
   the summed energies against jax.grad of the vmapped sum, 1e-8 relative.
 - The batch against the port's own unbatched energy_fn member by member on
-  the DF route and with a hybrid, and the routes that refuse a batch.
+  the DF route and with a hybrid (every other route:
+  tests/test_torch_batch_routes.py).
 """
 import jax
 import jax.numpy as jnp
@@ -334,23 +335,3 @@ def test_batch_equals_the_members_energy_fn(route):
         for m in range(2):
             em = qc.energy_fn(member_params(pb, m))
             assert abs(float(es[m]) - float(em)) <= 1e-11
-
-
-def test_routes_without_a_batch_raise():
-    from dqc_tpu_torch.utils.config import config
-    desc = "H 0 0 0; H 0 0 1.4"
-    old = config.DENSE_ERI_BYTES_LIMIT
-    config.DENSE_ERI_BYTES_LIMIT = 0
-    try:
-        qc = dqt.HF(dqt.Mol(desc, basis="sto-3g", device="cpu"))
-    finally:
-        config.DENSE_ERI_BYTES_LIMIT = old
-    assert qc.jk_mode in ("blocked", "stream")
-    pb = batch_params(qc._all_params(), np.zeros((2, 2, 3)))
-    with pytest.raises(NotImplementedError, match="A16"):
-        energy_batch(qc, pb)
-    sol = dqt.Sol("He 0 0 0", np.eye(3) * 3.0, basis="sto-3g",
-                  device="cpu")
-    qs = dqt.HF(sol)
-    with pytest.raises(NotImplementedError, match="A16"):
-        energy_batch(qs, batch_params(qs._all_params(), np.zeros((2, 1, 3))))

@@ -608,3 +608,37 @@ def test_batched_xc_kernels_match_plain_version_in_one_launch(nb, ng, nao):
         for m in range(nb):
             assert float((a[m] - r[m]).abs().max()
                          / r[m].abs().max()) <= 1e-10
+
+
+@pytest.mark.parametrize("nb,nk,ng,nao", [(2, 3, 700, 26), (3, 2, 3001, 7)])
+def test_xc_kernels_read_strided_member_views_in_place(nb, nk, ng, nao):
+    """The members' tables at one k-point of (B, nk, ...) stacks, a view
+    whose member stride is nk ng nao (odd ng nao for one case: the bulk
+    copies take the aligned span around it), and potentials shared by the
+    members (member stride 0): bit for bit the call on contiguous copies,
+    and within 1e-10 of the plain version; a view whose members are not
+    contiguous raises."""
+    _need_card()
+    rng = np.random.default_rng(nk * ng)
+
+    def t(*shape):
+        return torch.as_tensor(rng.standard_normal(shape), device="cuda")
+    ao_k, ag_k, dm = t(nb, nk, ng, nao), t(nb, nk, 3, ng, nao), t(nb, nao,
+                                                                   nao)
+    ao, ag = ao_k[:, 1], ag_k[:, 1]
+    vr, vg = t(1, ng).expand(nb, -1), t(1, 3, ng).expand(nb, -1, -1)
+    aoc, agc = ao.contiguous(), ag.contiguous()
+    dens = hopper_xc.ds_dens_gga(ao, ag, dm)
+    v = hopper_xc.ds_vxc_gga(ao, ag, vr, vg)
+    dens_c = hopper_xc.ds_dens_gga(aoc, agc, dm)
+    v_c = hopper_xc.ds_vxc_gga(aoc, agc, vr.contiguous(), vg.contiguous())
+    assert all(torch.equal(a, b) for a, b in zip(dens + (v,), dens_c + (v_c,)))
+    refs = hopper_xc.ds_dens_reference(ao, ag, dm) + (
+        hopper_xc.ds_vxc_reference(ao, ag, vr, vg),)
+    for a, r in zip(dens + (v,), refs):
+        for m in range(nb):
+            assert float((a[m] - r[m]).abs().max()
+                         / r[m].abs().max()) <= 1e-10
+    bad = ao.mT.contiguous().mT          # each member column-major
+    with pytest.raises(ValueError, match="member"):
+        hopper_xc.ds_dens_gga(bad, ag, dm)

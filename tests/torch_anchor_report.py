@@ -11,6 +11,8 @@
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
         pbc_h8_gdf_pbe pbc_h8_gdf_camb3lyp
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_h2_grad
+    JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
+        batch_routes
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py pbc_k3_hf \
         pbc_k3_pbe pbc_k3_pbe0 pbc_k3_camb3lyp pbc_k3_scan pbc_k3_uks_pbe
     JAX_PLATFORMS=cpu python tests/torch_anchor_report.py --factored \
@@ -74,6 +76,14 @@ tests/test_torch_pbc.py's H2 force cell (H2 in a 5-Bohr cube, the two-s
 SOFT_H basis, grid 0; its grid statics frozen as in the port; SCF tol
 1e-12), one JSON line each; the test holds the port's energy_grad against
 these values. About a minute on one core.
+
+"batch_routes" prints jax.vmap of the JAX package's energy_fn over the
+two members of each case of tests/test_torch_batch_routes.py's JAX_CASES
+(its member_positions), one JSON line each: the blocked route of H2O
+(DENSE_ERI_BYTES_LIMIT set to 0 for the run), the Gamma-point H2 cell on
+the pair transforms and on the periodic fit (run with --factored), and
+the k-point He cell; "batch_<case>" runs one case. 17-57 s each on one
+core.
 
 --factored: the JAX package's fit is contracted in factored form. Its
 build_df_theta returns j3c and v_inv = j2c^+ (eigh pseudo-inverse above
@@ -372,6 +382,43 @@ def pbc_h2_grad():
             "backend": jax.default_backend()}), flush=True)
 
 
+def batch_route(case):
+    """jax.vmap of energy_fn over one case of test_torch_batch_routes.py
+    (module docstring)."""
+    from dqc_tpu.system.sol import Sol
+    import test_torch_batch_routes as tb
+    system, xc, route = tb.JAX_CASES[case]
+    t0 = time.perf_counter()
+    opts = JOptions(mixed=False)
+    dense_limit = jqccalc.DENSE_ERI_BYTES_LIMIT
+    if system == "water":
+        jqccalc.DENSE_ERI_BYTES_LIMIT = 0
+        mol = dqc_tpu.Mol(tb.WATER, basis="sto-3g", grid=0)
+    else:
+        cell = dict(tb.CELLS[system])
+        desc, a = cell.pop("soldesc"), cell.pop("alattice")
+        mol = Sol(desc, a, **cell)
+        if route == "gdf":
+            mol = mol.densityfit(method="gdf")
+    try:
+        qc = (dqc_tpu.HF(mol, opts=opts) if xc is None
+              else dqc_tpu.KS(mol, xc=xc, opts=opts))
+        p0 = qc._all_params(with_fields=False)
+        pos = tb.member_positions(np.asarray(p0["basis"]["atompos"]))
+
+        def one(q):
+            return qc.energy_fn(dict(p0, basis=dict(p0["basis"],
+                                                    atompos=q)))
+        es = jax.jit(jax.vmap(one))(jnp.asarray(pos))
+        es = [float(e) for e in np.asarray(es)]
+    finally:
+        jqccalc.DENSE_ERI_BYTES_LIMIT = dense_limit
+    print(json.dumps({"case": case, "system": system, "xc": xc,
+                      "route": route, "energies_ha": es,
+                      "seconds": time.perf_counter() - t0,
+                      "backend": jax.default_backend()}), flush=True)
+
+
 VITAMIN_C = """O 0.1761 -2.0912 1.2179; O -2.5390 0.1686 -2.6197;
 O 1.5859 4.5166 0.5374; O -7.3565 -0.3855 -0.6285;
 O 5.7108 1.0762 -1.1444; O 3.7634 -4.0742 -0.2600;
@@ -474,7 +521,15 @@ def main(names, factored=False):
         jpbc.build_pbc_gdf = factored_build_pbc_gdf
         from dqc_tpu.scf import kpbc as jkpbc
         jkpbc.build_kpbc_gdf = factored_build_kpbc_gdf
+    if "batch_routes" in names:
+        import test_torch_batch_routes as tb
+        i = names.index("batch_routes")
+        names = (names[:i] + [f"batch_{c}" for c in tb.JAX_CASES]
+                 + names[i + 1:])
     for name in names:
+        if name.startswith("batch_"):
+            batch_route(name[len("batch_"):])
+            continue
         if name == "pbc_h2_grad":
             pbc_h2_grad()
             continue
